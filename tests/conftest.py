@@ -22,3 +22,10 @@ def _clear_jax_caches_per_module():
     import jax
 
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); the "
+        "test skips itself where there is none")
