@@ -13,23 +13,39 @@ Phases, in order; any failure exits non-zero before the result lines:
    ragged per-row lengths): the Fetch kernel within FETCH_ATOL of its plain
    version for the packed, kivi and raw layouts; the Store kernel's words
    and bf16 scales bit-exact, dropped rows untouched.
-4. Serve: a Server on full-width Yi-6B (random weights from a seed, float32,
-   all 32 layers), 4 requests of several hundred to 1000 prompt tokens, 32
-   new tokens each, every request crossing a block boundary in decode.
-   Launch counts are zeroed just before the run and read just after; both
-   kernels must have launched.  The output is checked for shape and range,
-   and the smoke-size model is held against the port's CPU path (the plain
+4. Paged kernel vs plain at Yi-6B shapes (B=8, arena of 128 pages, shuffled
+   page tables, ragged lengths, unassigned entries below a row's live
+   blocks): the paged Fetch within FETCH_ATOL of its plain version for
+   packed, kivi and raw; the Store into arena pages bit-exact, rows that do
+   not flush or whose entry is unassigned leaving the arena untouched.
+5. Serve, dense: a Server on full-width Yi-6B (random weights from a seed,
+   float32, all 32 layers; built once and shared by every serving phase), 4
+   requests of several hundred to 1000 prompt tokens, 32 new tokens each,
+   every request crossing a block boundary in decode.  Launch counts are
+   zeroed just before the run and read just after; both kernels must have
+   launched.  The output is checked for shape and range.
+6. Batched vs solo: the same requests one at a time through a server of the
+   same shape; greedy tokens must agree exactly (MIN_AGREEMENT = 1.0).
+7. Where the time of one dense decode step (4 rows decoding) and one
+   64-token prefill chunk goes: torch.profiler device time by kernel group,
+   and the card's idle share of the step's wall time.
+8. The smoke-size model on the card against the port's CPU path (the plain
    versions) under the repository's decided-margin rule.
-5. Batched vs solo: the same requests one at a time through a server of the
-   same shape; greedy tokens must agree (exact is the contract;
-   MIN_AGREEMENT is the floor below which the run fails).
-6. Times: each kernel and its plain version at the main path's shapes (CUDA
+9. Serve, paged: 8 requests of 280 to 750 prompt tokens, 48 new tokens each
+   (every one crossing a block boundary in decode), max_slots 8, through
+   (a) a pool of two dense rows' bytes, where all 8 must decode at once;
+   (b) a pool tight enough to preempt; (c) a dense server of 8 slots.  The
+   greedy tokens of (a), (b) and (c) must be identical.  Launch counts are
+   zeroed before each run; every pure decode step of (a) must launch the
+   paged Fetch and the Store once per layer and the dense Fetch never.  In
+   (a) and (c), one decode step with all 8 rows live and one prefill chunk
+   are profiled as in phase 7.
+10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
-   float32 operations over 67 TFLOP/s (H100 SXM data sheet).  Then where
-   the time of one decode step (4 rows decoding) and one 64-token prefill
-   chunk goes: torch.profiler device time by kernel group, and the card's
-   idle share of the step's wall time.
+   float32 operations over 67 TFLOP/s (H100 SXM data sheet).  The paged
+   Fetch is timed at the paged serving run's last lengths, beside the dense
+   Fetch on the same blocks.
 
 The last three lines are the card (nvidia-smi), a JSON line with one entry
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -46,12 +62,18 @@ from pathlib import Path
 import numpy as np
 
 FETCH_ATOL = 1e-4      # Fetch kernel vs plain: float32 sums in another order
-MIN_AGREEMENT = 0.9    # batched vs solo greedy-token floor (exact expected)
+MIN_AGREEMENT = 1.0    # batched vs solo greedy-token agreement: exact
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12      # H100 SXM float32, outside the tensor cores
 B, HKV, G, D, T, NB = 4, 4, 8, 128, 64, 64
 PROMPT_LENS = (300, 500, 750, 1000)  # each % 64 >= 33: decode crosses a block
 NEW_TOKENS = 32
+# The paged serving phase: 8 slots; each prompt % 64 >= 17, so 48 new
+# tokens cross a block boundary in decode.
+PAGED_LENS = (280, 350, 420, 490, 560, 630, 700, 750)
+PAGED_NEW = 48
+PB, P_ARENA = 8, 128  # paged kernel checks: rows, arena pages
+TIGHT_PAGES = 40      # preempts (4 times in a CPU run of the same lengths)
 
 
 def card_line() -> str:
@@ -94,36 +116,58 @@ def make_cache(layout: str, nb_valid, buf_len, seed: int):
     import torch
     from repro_torch.core import cache as C
 
+    b = len(nb_valid)
     spec = C.CacheSpec(layout=layout, block_size=T, max_seq=NB * T)
-    c = C.init_layer_cache(spec, B, HKV, D, device="cuda")
+    c = C.init_layer_cache(spec, b, HKV, D, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    kb = torch.randn((B, HKV, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
-    vb = torch.randn((B, HKV, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
-    slots = torch.arange(NB, device="cuda", dtype=torch.int32)[None].expand(B, NB)
+    kb = torch.randn((b, HKV, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
+    vb = torch.randn((b, HKV, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
+    slots = torch.arange(NB, device="cuda", dtype=torch.int32)[None].expand(b, NB)
     spec.impl.write_blocks(spec, c, slots, kb, vb)
     c.k_buf.copy_(torch.randn(c.k_buf.shape, generator=g, device="cuda"))
     c.v_buf.copy_(torch.randn(c.v_buf.shape, generator=g, device="cuda"))
     c.n_flushed.copy_(torch.as_tensor(nb_valid, dtype=torch.int32))
     c.buf_len.copy_(torch.as_tensor(buf_len, dtype=torch.int32))
-    q = torch.randn((B, HKV * G, D), generator=g, device="cuda")
+    q = torch.randn((b, HKV * G, D), generator=g, device="cuda")
     return spec, c, q
+
+
+def make_paged(c, nb_valid, seed: int, holes=()):
+    """Re-house a filled cache's live blocks in a shuffled arena of P_ARENA
+    pages; the other table entries, and the (row, slot) ``holes`` below a
+    row's live blocks, stay unassigned (-1)."""
+    import torch
+    from repro_torch.core import pool
+
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(P_ARENA, generator=g).tolist()
+    pages = torch.full((len(nb_valid), NB), -1, dtype=torch.int32)
+    for b, n in enumerate(nb_valid):
+        for j in range(n):
+            if (b, j) not in holes:
+                pages[b, j] = perm.pop()
+    return pool.from_dense(c, P_ARENA, pages.cuda())
 
 
 def fetch_args(spec, c):
     import torch
 
-    return ((c.k_store, c.k_min, c.k_step, c.v_store, c.v_min, c.v_step, c.k_buf,
-             c.v_buf, torch.clamp(c.n_flushed, max=NB), c.buf_len),
-            dict(tile=spec.impl.tile_decode(spec, D), block_size=T))
+    args = (c.k_store, c.k_min, c.k_step, c.v_store, c.v_min, c.v_step, c.k_buf,
+            c.v_buf, torch.clamp(c.n_flushed, max=NB), c.buf_len)
+    if c.spec.paged:
+        args += (c.page_tab,)
+    return args, dict(tile=spec.impl.tile_decode(spec, D), block_size=T)
 
 
-def fetch_bound_ms(spec, nb_valid, buf_len) -> tuple[float, str]:
+def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False) -> tuple[float, str]:
     """Least time for the Fetch work of these inputs: live blocks, valid
-    buffer tokens, q in, output out (bytes); the two products per block and
-    token (ops).  The scales fold into the products (q.(mn + st*c) = q.mn +
-    (q*st).c, and the same for V), so dequantizing each value is a cost of
-    the kernel's design, not of the function, and is not counted."""
+    buffer tokens, q in, output out, and the page table when paged (bytes);
+    the two products per block and token (ops).  The scales fold into the
+    products (q.(mn + st*c) = q.mn + (q*st).c, and the same for V), so
+    dequantizing each value is a cost of the kernel's design, not of the
+    function, and is not counted."""
+    B = len(nb_valid)
     live = HKV * int(sum(nb_valid))
     toks = HKV * int(sum(buf_len))
     if spec.layout == "raw":
@@ -133,6 +177,8 @@ def fetch_bound_ms(spec, nb_valid, buf_len) -> tuple[float, str]:
         blk = 4 * (spec.words_k(D) + spec.words_v(D)) + 2 * 2 * (D + T)
         per_blk = 4 * G * T * D + 2 * G * D + 3 * G * T
     nbytes = live * blk + toks * 2 * D * 2 + 2 * B * HKV * G * D * 4 + 2 * B * 4
+    if paged:
+        nbytes += B * NB * 4
     flops = live * per_blk + toks * (4 * G * D + G)
     return bound(nbytes, flops)
 
@@ -195,13 +241,78 @@ def phase_kernels(report: dict) -> None:
     report["fetch_err"], report["store_err"] = fetch_err, store_err
 
 
-def phase_serve(report: dict) -> None:
-    """Phases 4 and 5 on full-width Yi-6B."""
+def phase_paged_kernels(report: dict) -> None:
+    """Phase 4: the paged Fetch and the Store into arena pages against their
+    plain versions on the card."""
     import torch
-    from repro_torch.kernels import runtime
+    from repro_torch.core import pool
+    from repro_torch.kernels import fused_kv_attn, pack_encode, runtime
+
+    nb_valid = [40, 33, 12, 1, 0, 5, 9, 17]
+    buf_len = [0, 63, 17, 5, 1, 33, 60, 2]
+    holes = {(2, 1), (0, 39)}  # unassigned entries below nb_valid
+    err = 0.0
+    for i, layout in enumerate(("packed", "kivi", "raw")):
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=30 + i)
+        pc = make_paged(c, nb_valid, seed=i, holes=holes)
+        assert pc.k_store.shape[:3] == (1, HKV, P_ARENA)
+        args, kw = fetch_args(spec, pc)
+        n0 = runtime.launches["fused_kv_attn_paged"]
+        got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
+        if runtime.launches["fused_kv_attn_paged"] != n0 + 1:
+            raise AssertionError("the paged Fetch did not count a paged launch")
+        want = fused_kv_attn.plain(q, *args, **kw)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if not (e <= FETCH_ATOL and torch.isfinite(got).all()):
+            raise AssertionError(f"paged Fetch kernel vs plain ({layout}): max |err| {e}")
+        print(f"  paged fetch {layout:6s} max|kernel-plain| = {e:.3e} (tol {FETCH_ATOL})")
+        err = max(err, e)
+    report["fetch_paged_err"] = err
+
+    names = pool.STORE_FIELDS
+    for layout, dt in (("packed", torch.bfloat16), ("kivi", torch.bfloat16),
+                       ("packed", torch.float32)):
+        spec, c, _ = make_cache(layout, nb_valid, buf_len, seed=40)
+        pc = make_paged(c, nb_valid, seed=7, holes=holes)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(12)
+        kb = torch.randn((PB, HKV, 1, T, D), generator=g, device="cuda").to(dt)
+        vb = torch.randn((PB, HKV, 1, T, D), generator=g, device="cuda").to(dt)
+        # rows 1 (no flush), 2 (its hole), 4 and 0 (unassigned entries) drop
+        logical = torch.tensor([[39], [NB], [1], [0], [0], [2], [8], [16]],
+                               dtype=torch.int32, device="cuda")
+        slots = pool.lookup_slots(pc.page_tab, logical, NB, P_ARENA).to(torch.int32)
+        dropped = (slots[:, 0] == P_ARENA).tolist()
+        if dropped != [True, True, True, False, True, False, False, False]:
+            raise AssertionError(f"unexpected drop pattern {dropped}")
+        a = [getattr(pc, f).clone() for f in names]
+        b = [getattr(pc, f).clone() for f in names]
+        kw = dict(bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
+                  rel_scale_v=spec.rel_scale_v, kivi=spec.impl.kivi_step)
+        pack_encode.pack_encode(kb, vb, slots, *a, **kw)
+        pack_encode.pack_encode_plain(kb, vb, slots, *b, **kw)
+        torch.cuda.synchronize()
+        written = {int(x) for x in slots[:, 0] if int(x) < P_ARENA}
+        keep = [p for p in range(P_ARENA) if p not in written]
+        for f, x, y in zip(names, a, b):
+            old = getattr(pc, f)
+            if x.dtype != torch.int32:
+                x, y, old = bf16_bits(x), bf16_bits(y), bf16_bits(old)
+            if not torch.equal(x, y):
+                raise AssertionError(f"arena Store kernel vs plain ({layout}, {dt}): {f} "
+                                     f"differs in {int((x != y).sum())} entries")
+            if not torch.equal(x[:, :, keep], old[:, :, keep]):
+                raise AssertionError(f"arena Store wrote a page no flush was for ({f})")
+        print(f"  arena store {layout:6s} {str(dt):14s}: {len(written)} pages written "
+              f"bit-exact, {len(keep)} untouched")
+
+
+def yi_6b():
+    """Full-width Yi-6B with random float32 weights from seed 0."""
+    import torch
     from repro_torch.models import model as M
     from repro_torch.models import registry
-    from repro_torch.serve.scheduler import Request, Server, ServerConfig
 
     cfg = registry.get_config("yi_6b")
     t0 = time.monotonic()
@@ -211,6 +322,16 @@ def phase_serve(report: dict) -> None:
           f"{cfg.n_kv_heads} heads, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.2f}B float32 params "
           f"({time.monotonic() - t0:.1f} s to init)")
+    return cfg, params
+
+
+def phase_serve(report: dict, cfg, params) -> None:
+    """Phases 5, 6 and 7 on full-width Yi-6B, dense."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import Request, Server, ServerConfig
+
     spec = M.cache_spec(cfg, 4096)
     print(f"  cache: {spec.layout}, block {spec.block_size}, K {spec.bits_k} bits "
           f"({spec.words_k(D)} words/block), V {spec.bits_v} bits "
@@ -248,9 +369,11 @@ def phase_serve(report: dict) -> None:
           f"(raw bf16: {raw} B, ratio {raw * B * 4096 / kv:.2f}); peak device "
           f"memory {peak / 2**30:.2f} GiB")
     print(f"  kernels launched on the main path: {launches}")
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("fused_kv_attn", "pack_encode"):
+        if launches[name] < 1:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    if launches["fused_kv_attn_paged"]:
+        raise AssertionError("the dense path launched the paged Fetch")
     report.update(launches=launches, tok_s=n_tok / wall, wall_s=wall,
                   ttft_s=[r.ttft_s for r in results], decode_steps=st["decode_steps"],
                   chunks=st["prefill"]["chunks"])
@@ -263,7 +386,7 @@ def phase_serve(report: dict) -> None:
     report["per_step"] = dict(runtime.launches)
     print(f"  launches per decode step: {report['per_step']}")
 
-    print("[5] batched vs solo", flush=True)
+    print("[6] batched vs solo", flush=True)
     solo = Server(cfg, params, scfg)
     agree = total = 0
     for p, r in zip(prompts, results):
@@ -276,9 +399,9 @@ def phase_serve(report: dict) -> None:
     if frac < MIN_AGREEMENT:
         raise AssertionError(f"batched vs solo agreement {frac} < {MIN_AGREEMENT}")
     report["agreement"] = frac
-    print("[6] where the time goes", flush=True)
+    print("[7] where the time goes", flush=True)
     phase_profile(cfg, params, server, prompts)
-    del server, solo, params
+    del server, solo
     torch.cuda.empty_cache()
 
 
@@ -410,8 +533,155 @@ def phase_profile(cfg, params, server, prompts) -> None:
     _print_profile("prefill chunk (64 tokens at 512, 576)", *_profiled(chunk))
 
 
+def _chunk_profile(cfg, params, server, prompt) -> None:
+    """One 64-token prefill chunk at positions 512 and 576 of ``prompt``, as
+    ``server`` admits it: through a batch-1 view of its arena, on pages
+    from its pool (paged), or through a private batch-1 state (dense)."""
+    import torch
+    from repro_torch.models import model as M
+
+    toks = torch.as_tensor(prompt[None, :640], device="cuda")
+    if server.paged:
+        host = np.full(NB, -1, np.int64)
+        host[:10] = server.pool.alloc(10)
+
+        def state(pos):
+            pages = torch.as_tensor(host, dtype=torch.int32, device="cuda")
+            return M.chunk_state_view(server.state, pages, pos)
+    else:
+        st = M.init_decode_state(cfg, 1, 4096, device="cuda")
+
+        def state(pos):
+            return st
+    for pos in range(0, 512, T):
+        M.prefill_chunk(params, cfg, toks[:, pos:pos + T], pos, state(pos))
+    pos = [512]
+
+    def chunk():
+        M.prefill_chunk(params, cfg, toks[:, pos[0]:pos[0] + T], pos[0], state(pos[0]))
+        pos[0] += T
+
+    mode = "paged" if server.paged else "dense"
+    _print_profile(f"{mode} prefill chunk (64 tokens at 512, 576)", *_profiled(chunk))
+
+
+def _paged_run(cfg, params, prompts, scfg, profile: bool = False) -> dict:
+    """Serve the paged phase's requests through one server, stepping by
+    hand: the launch counts of every pure decode step, the peak number of
+    live rows, and (``profile``) one decode step with every row live and,
+    after the run, one prefill chunk."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.serve.scheduler import Request, Server
+
+    server = Server(cfg, params, scfg)
+    handles = [server.submit(Request(prompt=p, max_new_tokens=PAGED_NEW)) for p in prompts]
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    peak, per_step, wall, out = 0, set(), 0.0, {}
+    while True:
+        st0, l0 = server.stats(), dict(runtime.launches)
+        if (profile and "profile" not in out and server.active == PB
+                and not server.prefilling and not server.pending):
+            if server.paged:
+                live = [r for r, h in enumerate(server._slots) if h is not None]
+                tokens = int(sum(server._pos[r] for r in live))
+                pool = server.pool
+                out["kv_b_per_token"] = pool.live_pages * pool.bytes_per_page / tokens
+                print(f"  all {PB} rows live: {pool.live_pages} pages x {pool.bytes_per_page} "
+                      f"B over {tokens} cached tokens = {out['kv_b_per_token']:.0f} B a token "
+                      f"over {cfg.n_layers} layers")
+            out["profile"] = _profiled(server.step)
+            mode = "paged" if server.paged else "dense"
+            _print_profile(f"{mode} decode step ({PB} rows)", *out["profile"])
+            continue
+        t0 = time.monotonic()
+        more = server.step()
+        wall += time.monotonic() - t0
+        st1 = server.stats()
+        if (st1["decode_steps"] == st0["decode_steps"] + 1
+                and st1["prefill"]["chunks"] == st0["prefill"]["chunks"]):
+            per_step.add(tuple(sorted((k, v - l0[k]) for k, v in runtime.launches.items())))
+        peak = max(peak, server.active)
+        if not more:
+            break
+    torch.cuda.synchronize()
+    st = server.stats()
+    out.update(tokens=[h.result().tokens for h in handles], launches=dict(runtime.launches),
+               per_step=per_step, peak=peak, wall=wall, stats=st,
+               ttft=[h.result().ttft_s for h in handles])
+    n_tok = sum(len(t) for t in out["tokens"])
+    out["tok_s"] = n_tok / wall
+    print(f"  served {n_tok} tokens in {wall:.2f} s of steps: {n_tok / wall:.1f} tok/s, "
+          f"mean ttft {np.mean(out['ttft']):.3f} s, {st['decode_steps']} decode steps, "
+          f"{st['prefill']['chunks']} prefill chunks, peak {peak} rows live, "
+          f"{st['preemptions']} preemptions ({st['prefill']['prefill_preemptions']} "
+          f"mid-prefill)")
+    if "pool" in st:
+        p = st["pool"]
+        print(f"  pool: {p['pages_total']} pages of {p['bytes_per_page']} B, high water "
+              f"{p['high_water_pages']}, {p['alloc_pages']} allocated, {p['freed_pages']} "
+              f"freed, {p['pages_live']} live at the end")
+    print(f"  launches: {out['launches']}; per pure decode step: "
+          f"{[dict(x) for x in sorted(per_step)]}")
+    for toks in out["tokens"]:
+        if (toks.shape != (PAGED_NEW,) or toks.min() < 0 or toks.max() >= cfg.vocab_size):
+            raise AssertionError(f"bad paged output: {toks}")
+    if profile:
+        if "profile" not in out:
+            raise AssertionError("no step had every row live to profile")
+        _chunk_profile(cfg, params, server, prompts[-1])
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_paged_serve(report: dict, cfg, params) -> None:
+    """Phase 9: paged serving on full-width Yi-6B, ample pool, tight pool,
+    and a dense server of the same shape; the greedy tokens of all three
+    must be identical."""
+    from repro_torch.core import pool
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ServerConfig
+
+    specs = M.cache_specs(cfg, 4096)
+    page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim) for s in specs)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32) for L in PAGED_LENS]
+    base = dict(max_slots=PB, max_seq=4096, attn_backend="fused")
+    print(f"  one page is {page_b} B across {cfg.n_layers} layers ({page_b / 2**20:.3f} MiB)")
+
+    print(f"  (a) ample pool: two dense rows' bytes ({2 * NB} pages)", flush=True)
+    a = _paged_run(cfg, params, prompts, ServerConfig(
+        cache_mode="paged", pool_hbm_bytes=2 * NB * page_b, **base), profile=True)
+    if a["peak"] != PB:
+        raise AssertionError(f"only {a['peak']} of {PB} requests decoded at once")
+    n_layers = cfg.n_layers
+    want = {(("fused_kv_attn", 0), ("fused_kv_attn_paged", n_layers), ("pack_encode", n_layers))}
+    if a["per_step"] != want:
+        raise AssertionError(f"paged decode step launches {a['per_step']}, expected {want}")
+
+    print(f"  (b) tight pool: {TIGHT_PAGES} pages", flush=True)
+    b = _paged_run(cfg, params, prompts, ServerConfig(
+        cache_mode="paged", pool_hbm_bytes=TIGHT_PAGES * page_b, **base))
+    if b["stats"]["preemptions"] < 1:
+        raise AssertionError("the tight pool preempted nothing")
+
+    print("  (c) dense, 8 slots", flush=True)
+    c = _paged_run(cfg, params, prompts, ServerConfig(cache_mode="dense", **base),
+                   profile=True)
+    for name, run in (("tight", b), ("dense", c)):
+        same = sum(int((x == y).all()) for x, y in zip(a["tokens"], run["tokens"]))
+        print(f"  ample vs {name}: {same}/{PB} requests with identical greedy tokens")
+        if same != PB:
+            raise AssertionError(f"paged ample vs {name}: tokens differ")
+    report["paged"] = dict(launches=a["launches"], tok_s=a["tok_s"], per_step=n_layers,
+                           kv_b_per_token=a["kv_b_per_token"],
+                           preemptions=b["stats"]["preemptions"])
+
+
 def phase_times(report: dict) -> list[dict]:
-    """Phase 6: kernel and plain times at the main path's shapes."""
+    """Phase 10: kernel and plain times at the main path's shapes."""
     import torch
     from repro_torch.core import cache as C
     from repro_torch.kernels import fused_kv_attn, pack_encode
@@ -446,6 +716,23 @@ def phase_times(report: dict) -> list[dict]:
     print(f"  store (decode step, B={B}): kernel {s_ms:.4f} ms with every row flushing, "
           f"{s_drop:.4f} ms with none, plain {s_plain:.4f} ms, bound {s_bound:.5f} ms "
           f"({s_by}), {report['per_step']['pack_encode']} launches/decode step")
+
+    # The paged Fetch at the paged serving run's last decode step, on a
+    # shuffled arena, beside the dense Fetch reading the same blocks.
+    nb_p = [(L + PAGED_NEW - 1) // T for L in PAGED_LENS]
+    bl_p = [(L + PAGED_NEW - 1) % T for L in PAGED_LENS]
+    spec, c, q = make_cache("packed", nb_p, bl_p, seed=22)
+    pc = make_paged(c, nb_p, seed=3)
+    pargs, kw = fetch_args(spec, pc)
+    dargs, _ = fetch_args(spec, c)
+    p_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *pargs, **kw))
+    d_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *dargs, **kw))
+    p_plain = timed(lambda: fused_kv_attn.plain(q, *pargs, **kw))
+    p_bound, p_by = fetch_bound_ms(spec, nb_p, bl_p, paged=True)
+    print(f"  paged fetch (packed, B={PB}, arena {P_ARENA} pages, nb_valid {nb_p}, buf_len "
+          f"{bl_p}): kernel {p_ms:.4f} ms, dense kernel on the same blocks {d_ms:.4f} ms, "
+          f"plain {p_plain:.4f} ms, bound {p_bound:.5f} ms ({p_by}), "
+          f"{report['paged']['per_step']} launches/decode step")
     return [
         {"name": "fused_kv_attn", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_kv_attn.cu",
@@ -456,9 +743,18 @@ def phase_times(report: dict) -> list[dict]:
         {"name": "pack_encode", "route": "cuda",
          "source": "src/repro_torch/csrc/pack_encode.cu",
          "replaces": "src/repro/kernels/pack_encode.py:46",
-         "launches": report["launches"]["pack_encode"], "max_abs_err": report["store_err"],
+         # the Store runs on both paths: the dense and the ample paged run
+         "launches": report["launches"]["pack_encode"]
+         + report["paged"]["launches"]["pack_encode"],
+         "max_abs_err": report["store_err"],
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None},
+        {"name": "fused_kv_attn_paged", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_kv_attn.cu",
+         "replaces": "src/repro/kernels/fused_kv_attn.py:113",
+         "launches": report["paged"]["launches"]["fused_kv_attn_paged"],
+         "max_abs_err": report["fetch_paged_err"], "ms": p_ms, "plain_ms": p_plain,
+         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
     ]
 
 
@@ -483,11 +779,18 @@ def main() -> int:
     report: dict = {}
     print("[3] kernels vs plain at Yi-6B shapes", flush=True)
     phase_kernels(report)
-    print("[4] serve full-width Yi-6B", flush=True)
-    phase_serve(report)
-    print("[4] reference check on the smoke model", flush=True)
+    print("[4] paged kernels vs plain at Yi-6B shapes", flush=True)
+    phase_paged_kernels(report)
+    print("[5] serve full-width Yi-6B, dense", flush=True)
+    cfg, params = yi_6b()
+    phase_serve(report, cfg, params)
+    print("[8] reference check on the smoke model", flush=True)
     phase_reference()
-    print("[6] kernel times", flush=True)
+    print("[9] serve full-width Yi-6B, paged", flush=True)
+    phase_paged_serve(report, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    print("[10] kernel times", flush=True)
     kernels = phase_times(report)
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(card_line())

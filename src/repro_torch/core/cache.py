@@ -1,4 +1,4 @@
-"""Compressed KV-cache manager, dense mode (the port of ``repro.core.cache``).
+"""Compressed KV-cache manager (the port of ``repro.core.cache``).
 
 A per-layer cache keeps its main storage compressed (a ring of block slots,
 encoded by the ``CacheLayout`` named in ``CacheSpec.layout``) and a small
@@ -16,8 +16,12 @@ on every token would double the decode path's memory traffic) and return
 the same ``LayerKVCache``.  They never read a device value on the host, so
 a decode step launches its kernels without waiting for the card.
 
-Paged mode (one shared arena per layer) belongs to a later slice of the
-port: every function here raises ``NotImplementedError`` for it.
+Paged mode (DESIGN.md §10, ``repro_torch.core.pool``): the six store
+tensors are one shared arena per layer (batch extent 1, ``pool_pages``
+pages on the block axis) and each row reaches its blocks through its
+``page_tab`` row.  Flushes translate ring slots to pages through
+``pool.lookup_slots`` (an unassigned entry drops the write); reads gather
+through the table and skip unassigned entries.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.core import bitpack, layouts
+from repro_torch.core import bitpack, layouts, pool
 from repro_torch.kernels.runtime import resolve_device
 
 BLOCKWISE_SPAN_TOKENS = 1024  # ~tokens decoded per blockwise-scan step
@@ -47,11 +51,14 @@ class CacheSpec:
     bits_k_override: int | None = None
     bits_v_override: int | None = None
     attn_backend: str = "auto"
-    mode: str = "dense"
+    mode: str = "dense"  # "dense" | "paged" (shared arena, page-indirect)
+    pool_pages: int = 0  # paged: physical pages in the shared arena
 
     def __post_init__(self):
         if self.mode not in ("dense", "paged"):
             raise ValueError(f"mode must be dense|paged, got {self.mode!r}")
+        if self.mode == "paged" and self.pool_pages < 1:
+            raise ValueError(f"paged mode needs pool_pages >= 1, got {self.pool_pages}")
         if self.window is not None and self.window % self.block_size:
             raise ValueError(
                 f"block_size ({self.block_size}) must divide window "
@@ -80,22 +87,22 @@ class CacheSpec:
 
     @property
     def n_blocks(self) -> int:
-        """Ring length: blocks addressable per row."""
+        """Logical ring length: blocks addressable per row (the page-table
+        width in paged mode)."""
         span = self.max_seq if self.window is None else min(self.window, self.max_seq)
         return max(1, math.ceil(span / self.block_size))
+
+    @property
+    def store_blocks(self) -> int:
+        """Extent of the store's block axis: the arena's page count in paged
+        mode, the per-row ring length in dense mode."""
+        return self.pool_pages if self.paged else self.n_blocks
 
     def words_k(self, head_dim: int) -> int:
         return bitpack.nostraddle_words(self.block_size * head_dim, self.bits_k)
 
     def words_v(self, head_dim: int) -> int:
         return bitpack.nostraddle_words(self.block_size * head_dim, self.bits_v)
-
-
-def _dense_only(spec: CacheSpec) -> None:
-    if spec.paged:
-        raise NotImplementedError(
-            "paged cache mode belongs to a later slice of the port "
-            "(the paged block pool, ROADMAP.md item 5)")
 
 
 @dataclasses.dataclass
@@ -112,6 +119,11 @@ class LayerKVCache:
       k_buf / v_buf : bf16 [B, Hkv, T, D] raw append buffer
       n_flushed : int32 [B] blocks ever flushed per row (ring index)
       buf_len   : int32 [B] valid buffer entries per row
+      page_tab  : int32 [B, NB] paged mode only: ring slot -> arena page
+                  (-1 unassigned); dense mode holds a [1] dummy.  In paged
+                  mode the six store tensors have batch extent 1 and
+                  ``spec.pool_pages`` pages on the block axis, while the
+                  buffers and lengths stay per row.
     """
 
     k_store: torch.Tensor
@@ -124,10 +136,11 @@ class LayerKVCache:
     v_buf: torch.Tensor
     n_flushed: torch.Tensor
     buf_len: torch.Tensor
+    page_tab: torch.Tensor
     spec: CacheSpec
 
     FIELDS = ("k_store", "k_min", "k_step", "v_store", "v_min", "v_step",
-              "k_buf", "v_buf", "n_flushed", "buf_len")
+              "k_buf", "v_buf", "n_flushed", "buf_len", "page_tab")
 
     @property
     def head_dim(self) -> int:
@@ -140,16 +153,18 @@ class LayerKVCache:
 
 def init_layer_cache(spec: CacheSpec, batch: int, n_kv_heads: int, head_dim: int,
                      dtype=torch.bfloat16, device="cuda") -> LayerKVCache:
-    _dense_only(spec)
     dev = resolve_device(device)
     B, H, T, D = batch, n_kv_heads, spec.block_size, head_dim
-    stores = spec.impl.init_store(spec, B, H, D, dtype, dev)
+    stores = spec.impl.init_store(spec, 1 if spec.paged else B, H, D, dtype, dev)
+    page_tab = (torch.full((B, spec.n_blocks), -1, dtype=torch.int32, device=dev)
+                if spec.paged else torch.zeros((1,), dtype=torch.int32, device=dev))
     return LayerKVCache(
         *stores,
         k_buf=torch.zeros((B, H, T, D), dtype=dtype, device=dev),
         v_buf=torch.zeros((B, H, T, D), dtype=dtype, device=dev),
         n_flushed=torch.zeros((B,), dtype=torch.int32, device=dev),
         buf_len=torch.zeros((B,), dtype=torch.int32, device=dev),
+        page_tab=page_tab,
         spec=spec,
     )
 
@@ -157,8 +172,13 @@ def init_layer_cache(spec: CacheSpec, batch: int, n_kv_heads: int, head_dim: int
 def prefill(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
             dtype=torch.bfloat16) -> LayerKVCache:
     """Build a cache on ``k``'s device from prompt KV [B, Hkv, S, D]: whole
-    blocks are compressed, the remainder lands in the raw buffer."""
-    _dense_only(spec)
+    blocks are compressed, the remainder lands in the raw buffer.  Dense
+    only, as in the reference: the server fills paged arenas chunk by chunk
+    (``pool.chunk_view``), and ``pool.from_dense`` re-houses a dense cache."""
+    if spec.paged:
+        raise ValueError(
+            "prefill builds dense caches; compress under the dense twin of "
+            "this spec and re-house it with repro_torch.core.pool.from_dense")
     B, H, S, D = k.shape
     T, NB = spec.block_size, spec.n_blocks
     n_full = S // T
@@ -186,9 +206,9 @@ def append(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> Lay
     The Store stage runs on every call: rows that do not flush pass the drop
     sentinel slot ``NB`` and write nothing, so no host-side check of which
     rows flush is needed (the reference skips the encode with a device-side
-    ``lax.cond``)."""
+    ``lax.cond``).  In paged mode the ring slots translate through the page
+    table to arena pages first; an unassigned entry also drops."""
     spec = cache.spec
-    _dense_only(spec)
     T, NB = spec.block_size, spec.n_blocks
     B = cache.batch
     pos = cache.buf_len.long()  # [B], always < T
@@ -198,6 +218,8 @@ def append(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> Lay
     will_flush = (pos + 1) == T
     slots = torch.where(will_flush, cache.n_flushed.long() % NB,
                         torch.full_like(pos, NB))[:, None]  # [B, 1]
+    if spec.paged:
+        slots = pool.lookup_slots(cache.page_tab, slots, NB, spec.pool_pages)
     spec.impl.write_blocks(spec, cache, slots, cache.k_buf[:, :, None],
                            cache.v_buf[:, :, None])
     cache.n_flushed += will_flush.to(torch.int32)
@@ -214,7 +236,6 @@ def attend(cache: LayerKVCache, q: torch.Tensor, scale: float | None = None,
     ``fused`` runs the Fetch kernel (its plain version on the CPU), ``xla``
     the blockwise scan below.
     """
-    _dense_only(cache.spec)
     return cache.spec.impl.attend_block(cache, q, scale, backend=backend)
 
 
@@ -262,7 +283,13 @@ def _store_scan(cache: LayerKVCache, qg: torch.Tensor, scale: float):
         # The last (ragged) span clamps its window back; blocks before n0
         # were already consumed, so the mask drops them.
         start = min(n0, NB - span)
-        kc, k_mn, k_st, vc, v_mn, v_st = spec.impl.decode_span(spec, cache, start, span)
+        if spec.paged:
+            # Gather the span's pages out of the shared arena into a dense
+            # per-row view; the layout decodes it unchanged from block 0.
+            kc, k_mn, k_st, vc, v_mn, v_st = spec.impl.decode_span(
+                spec, pool.span_view(cache, start, span), 0, span)
+        else:
+            kc, k_mn, k_st, vc, v_mn, v_st = spec.impl.decode_span(spec, cache, start, span)
         has_scales = k_mn is not None
         if has_scales:
             kc = kc * k_st.to(f32)[:, :, :, None, :]
@@ -274,6 +301,10 @@ def _store_scan(cache: LayerKVCache, qg: torch.Tensor, scale: float):
         s = s * scale
         idx = start + torch.arange(span, device=qg.device)
         ok = (idx[None, :] >= n0) & (idx[None, :] < nb_valid[:, None])  # [B, C]
+        if spec.paged:
+            # Unassigned entries gathered a clamped page: they contribute
+            # nothing, whatever nb_valid says.
+            ok = ok & (cache.page_tab[:, start:start + span] >= 0)
         okx = ok[:, None, None, :, None]
         s = torch.where(okx, s, torch.full_like(s, kref.NEG_INIT))
         m_new = torch.maximum(m, s.reshape(B, Hkv, G, span * T).amax(-1))
@@ -305,7 +336,6 @@ def attend_chunk(cache: LayerKVCache, q: torch.Tensor, k_new: torch.Tensor,
     online-softmax combine."""
     from repro_torch.kernels import ref as kref
 
-    _dense_only(cache.spec)
     B, C, Hq, D = q.shape
     Hkv = k_new.shape[1]
     G = Hq // Hkv
@@ -334,9 +364,9 @@ def attend_chunk(cache: LayerKVCache, q: torch.Tensor, k_new: torch.Tensor,
 def append_chunk(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> LayerKVCache:
     """Append one chunk's KV ``[B, Hkv, C, D]`` at a block boundary (the raw
     buffer must be empty).  A full chunk (``C == block_size``) compresses
-    straight into the ring; a partial one lands in the raw buffer.  In place."""
+    straight into the ring (or the row's arena page); a partial one lands in
+    the raw buffer.  In place."""
     spec = cache.spec
-    _dense_only(spec)
     T, NB = spec.block_size, spec.n_blocks
     C = k_new.shape[2]
     dt = cache.k_buf.dtype
@@ -344,6 +374,8 @@ def append_chunk(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor) 
         raise ValueError(f"chunk of {C} tokens vs block_size {T}")
     if C == T:
         slots = (cache.n_flushed.long() % NB)[:, None]
+        if spec.paged:
+            slots = pool.lookup_slots(cache.page_tab, slots, NB, spec.pool_pages)
         spec.impl.write_blocks(spec, cache, slots, k_new[:, :, None].to(dt),
                                v_new[:, :, None].to(dt))
         cache.n_flushed += 1

@@ -6,8 +6,8 @@ registry.  A layout owns:
 
 * ``init_store``   — allocate the six store tensors of a ``LayerKVCache``.
 * ``write_blocks`` — the Store stage: quantize + encode whole blocks into
-                     ring slots.  Updates the cache's store tensors in place
-                     (no copy of the ring per flush).  The packed layouts
+                     ring slots, or arena pages in paged mode.  Updates the
+                     cache's store tensors in place (no copy per flush).  The packed layouts
                      launch the Store kernel (``kernels.pack_encode``).
 * ``decode_span``  — lazy decode of a few blocks for the blockwise scan
                      (the ``xla`` backend, plain PyTorch).
@@ -102,23 +102,41 @@ class FusedTileSpec:
 
 def scatter_slots(store: torch.Tensor, slots: torch.Tensor,
                   vals: torch.Tensor) -> None:
-    """Write per-row block payloads into ring slots of a store, in place.
+    """Write per-row block payloads into store slots, in place.
 
-    store : [B, H, NB, ...]; slots : int [B, n] ring indices, where an
-    out-of-range slot is the drop sentinel (that row writes nothing);
-    vals : [B, H, n, ...].  Dropped rows rewrite their slot 0 with its own
-    value, so the write needs no host-side look at ``slots``.
+    store : [Bs, H, NBs, ...], a per-row ring (Bs = B) or the paged arena
+    (Bs = 1, NBs = pool pages); slots : int [B, n] ring slots or arena
+    pages, where a slot outside ``[0, NBs)`` is the drop sentinel (that
+    entry writes nothing); vals : [B, H, n, ...].
+
+    The write needs no host-side look at ``slots``: a dropped entry repeats
+    the first live entry's write (same place, same bits), or, when no entry
+    is live, rewrites slot 0 of row 0 with its own value.  Duplicate indices
+    then always carry identical bits, so no write order can change the
+    result.  Two live entries on one place (two rows sharing a page, which
+    the pool never allows) would race; on the CPU that raises.
     """
-    B, NB = store.shape[0], store.shape[2]
-    n = slots.shape[1]
-    ok = (slots >= 0) & (slots < NB)
-    idx = torch.where(ok, slots, torch.zeros_like(slots)).long()
-    bidx = torch.arange(B, device=store.device)[:, None].expand(B, n)
+    Bs, NBs = store.shape[0], store.shape[2]
+    B, n = slots.shape
+    E, dev = B * n, store.device
+    flat = slots.reshape(E).long()
+    ok = (flat >= 0) & (flat < NBs)
+    rows = (torch.arange(B, device=dev).repeat_interleave(n) if Bs > 1
+            else torch.zeros(E, dtype=torch.long, device=dev))
+    if dev.type == "cpu" and ok.any():
+        live = rows[ok] * NBs + flat[ok]
+        if len(torch.unique(live)) != len(live):
+            raise RuntimeError("two live writes target one store slot")
+    rep = torch.argmax(ok.to(torch.int32))  # first live entry (0 if none)
+    any_ok = ok[rep]
+    src = torch.where(ok, torch.arange(E, device=dev), rep)
+    zero = torch.zeros_like(flat)
+    tb = torch.where(any_ok, rows[src], zero)
+    ts = torch.where(any_ok, flat[src], zero)
+    new = vals.movedim(2, 1).reshape(E, *vals.shape[1:2], *vals.shape[3:])[src]
     # Advanced indices at dims 0 and 2 around a slice: the indexed dims move
-    # to the front, so the selection is [B, n, H, ...].
-    new = vals.movedim(2, 1).to(store.dtype)
-    okx = ok.reshape(B, n, *([1] * (new.dim() - 2)))
-    store[bidx, :, idx] = torch.where(okx, new, store[bidx, :, idx])
+    # to the front, so the selection is [E, H, ...].
+    store[tb, :, ts] = torch.where(any_ok, new.to(store.dtype), store[tb, :, ts])
 
 
 class CacheLayout:
@@ -135,12 +153,14 @@ class CacheLayout:
         raise NotImplementedError
 
     def init_store(self, spec, batch, n_kv_heads, head_dim, dtype, device):
-        """Allocate (k_store, k_min, k_step, v_store, v_min, v_step)."""
+        """Allocate (k_store, k_min, k_step, v_store, v_min, v_step) with
+        ``spec.store_blocks`` blocks (ring slots, or arena pages)."""
         raise NotImplementedError
 
     def write_blocks(self, spec, cache, slots, kb, vb) -> None:
         """Store stage: write raw blocks kb/vb [B, H, n, T, D] into per-row
-        ring slots [B, n] (out-of-range slot = drop), in place."""
+        ring slots, or arena pages, [B, n] (out-of-range slot = drop), in
+        place."""
         raise NotImplementedError
 
     def decode_span(self, spec, cache, start: int, count: int):
@@ -208,7 +228,7 @@ class RawLayout(CacheLayout):
         return RAW_BITS_PER_VALUE
 
     def init_store(self, spec, batch, n_kv_heads, head_dim, dtype, device):
-        shape = (batch, n_kv_heads, spec.n_blocks, spec.block_size, head_dim)
+        shape = (batch, n_kv_heads, spec.store_blocks, spec.block_size, head_dim)
         dummy = torch.zeros((1,), dtype=dtype, device=device)
         return (torch.zeros(shape, dtype=dtype, device=device), dummy, dummy,
                 torch.zeros(shape, dtype=dtype, device=device), dummy, dummy)
@@ -238,7 +258,7 @@ class PackedLayout(CacheLayout):
         return bits_for_rel_scale(spec.rel_scale_v)
 
     def init_store(self, spec, batch, n_kv_heads, head_dim, dtype, device):
-        B, H, T, D, NB = batch, n_kv_heads, spec.block_size, head_dim, spec.n_blocks
+        B, H, T, D, NB = batch, n_kv_heads, spec.block_size, head_dim, spec.store_blocks
         z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
         return (z(B, H, NB, spec.words_k(D), dt=torch.int32), z(B, H, NB, D), z(B, H, NB, D),
                 z(B, H, NB, spec.words_v(D), dt=torch.int32), z(B, H, NB, T), z(B, H, NB, T))

@@ -1,5 +1,5 @@
 """Compression policies: the paper's LLM-aware knobs as one declarative
-object (the port of ``repro.core.policy``, dense specs).
+object (the port of ``repro.core.policy``).
 
 K and V get different granularities and error bounds, and the right setting
 may vary per layer: ``CompressionPolicy`` holds a base (layout, block_size,
@@ -55,7 +55,7 @@ class CompressionPolicy:
     v: TensorPolicy = TensorPolicy(rel_scale=DEFAULT_REL_SCALE_V)
     kivi_bits: int = 2
     attn_backend: str = "auto"
-    mode: str = "dense"
+    mode: str = "dense"  # "dense" rings per slot | "paged" (repro_torch.core.pool)
     overrides: tuple[LayerOverride, ...] = ()
 
     def __post_init__(self):
@@ -76,13 +76,14 @@ class CompressionPolicy:
                 v = ov.v.merged(v)
         return dataclasses.replace(self, layout=layout, k=k, v=v, overrides=())
 
-    def spec_for_layer(self, layer: int, *, max_seq: int,
-                       window: int | None = None) -> CacheSpec:
-        if self.mode == "paged":
-            raise NotImplementedError(
-                "paged cache mode belongs to a later slice of the port "
-                "(the paged block pool, ROADMAP.md item 5)")
+    def spec_for_layer(self, layer: int, *, max_seq: int, window: int | None = None,
+                       pool_pages: int = 0) -> CacheSpec:
+        """Resolve one layer's spec.  ``pool_pages`` sizes the shared paged
+        arena and is only known where the pool is (the ``Server``); without
+        it a paged policy resolves to its dense twin, which is what every
+        private batch-1 state and bulk prefill uses."""
         r = self.resolve(layer)
+        mode = r.mode if pool_pages > 0 else "dense"
         return CacheSpec(
             layout=r.layout,
             block_size=r.block_size,
@@ -94,9 +95,12 @@ class CompressionPolicy:
             bits_k_override=r.k.bits,
             bits_v_override=r.v.bits,
             attn_backend=r.attn_backend,
+            mode=mode,
+            pool_pages=pool_pages if mode == "paged" else 0,
         )
 
-    def layer_specs(self, n_layers: int, *, max_seq: int,
-                    window: int | None = None) -> tuple[CacheSpec, ...]:
-        return tuple(self.spec_for_layer(i, max_seq=max_seq, window=window)
+    def layer_specs(self, n_layers: int, *, max_seq: int, window: int | None = None,
+                    pool_pages: int = 0) -> tuple[CacheSpec, ...]:
+        return tuple(self.spec_for_layer(i, max_seq=max_seq, window=window,
+                                         pool_pages=pool_pages)
                      for i in range(n_layers))

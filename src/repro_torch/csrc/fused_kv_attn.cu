@@ -2,8 +2,9 @@
 // flash-decode attention, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_kv_attn.py:57
-// (`_kernel`, launched by `fused_cache_attention_pallas`), dense variant, for
-// the raw passthrough tiles and the packed/kivi no-straddle tiles.
+// (`_kernel`, launched by `fused_cache_attention_pallas`), dense and paged
+// variants, for the raw passthrough tiles and the packed/kivi no-straddle
+// tiles.
 //
 // What bounds it on an H100: in float32 on the CUDA cores, operations.  Per
 // live block and KV head the kernel reads ~9.5 KB (the packed K and V words at
@@ -29,6 +30,18 @@
 // fixed combine order: a row's output may not depend on which other rows are
 // in the batch (batched == solo), which is also why there are no atomics.
 //
+// Paged variant (a page table is given; null selects the dense variant, whose
+// code and numbers are unchanged).  The stores are one shared arena per layer,
+// [1, Hkv, P, ...], and block n of row b lives in page page_tab[b, n].  The
+// CTA stages its row's NB table entries in shared memory (256 B at NB = 64)
+// and addresses block n at (h * P + page).  An entry that is unassigned
+// (< 0, as for a preempted or retired row, or past the arena) skips the block
+// entirely, so no clamped page ever reaches the softmax (the TPU kernel's
+// `pt_ref >= 0` guard, src/repro/kernels/fused_kv_attn.py:113-114).  The
+// table adds NB * 4 bytes a row to what the kernel reads, so float32
+// operations still bound it, and the simple one-CTA-per-(row, head) design
+// stays for now.
+//
 // Decode: code i = t*D + d of a block sits in word i / cpw at bit
 // (i % cpw) * bits, cpw = 32 / bits.  The words do not align with rows of the
 // tile (128 % 6 != 0 at 5 bits), so the index is flat.  K dequantizes per
@@ -48,18 +61,20 @@ constexpr int kMaxAcc = 8;  // G*D <= kThreads * kMaxAcc accumulators a CTA
 
 struct Params {
   const float* q;  // [B, Hkv*G, D]
-  const void* k_store;  // packed: u32 [B,Hkv,NB,Wk]; raw: bf16 [B,Hkv,NB,T,D]
-  const __nv_bfloat16* k_min;  // [B,Hkv,NB,D] (packed only)
+  // Stores: [Bs, Hkv, P, ...] with Bs = B, P = NB dense; Bs = 1 for an arena.
+  const void* k_store;  // packed: u32 [Bs,Hkv,P,Wk]; raw: bf16 [Bs,Hkv,P,T,D]
+  const __nv_bfloat16* k_min;  // [Bs,Hkv,P,D] (packed only)
   const __nv_bfloat16* k_step;
   const void* v_store;
-  const __nv_bfloat16* v_min;  // [B,Hkv,NB,T] (packed only)
+  const __nv_bfloat16* v_min;  // [Bs,Hkv,P,T] (packed only)
   const __nv_bfloat16* v_step;
   const __nv_bfloat16* k_buf;  // [B,Hkv,T,D]
   const __nv_bfloat16* v_buf;
   const int* nb_valid;  // [B], already clamped to NB
   const int* buf_len;   // [B]
+  const int* page_tab;  // [B, NB] arena page of each ring slot; null = dense
   float* out;           // [B, Hkv*G, D]
-  int Hkv, G, D, T, NB, Wk, Wv, bits_k, bits_v, raw;
+  int Hkv, G, D, T, NB, P, Wk, Wv, bits_k, bits_v, raw;  // P: store block extent
   float scale;
 };
 
@@ -167,6 +182,7 @@ __global__ void __launch_bounds__(kThreads) fused_kv_attn_kernel(Params p) {
   float* l_s = m_s + G;           // G
   float* alpha = l_s + G;         // G
   uint32_t* words = reinterpret_cast<uint32_t*>(alpha + G);  // max(Wk, Wv)
+  int* pt_s = reinterpret_cast<int*>(words + (p.raw ? 0 : (p.Wk > p.Wv ? p.Wk : p.Wv)));  // NB
 
   const int tid = threadIdx.x;
   const size_t bh = static_cast<size_t>(b) * p.Hkv + h;
@@ -176,6 +192,9 @@ __global__ void __launch_bounds__(kThreads) fused_kv_attn_kernel(Params p) {
     m_s[g] = kNegInit;
     l_s[g] = 0.f;
   }
+  if (p.page_tab != nullptr) {
+    for (int i = tid; i < p.NB; i += blockDim.x) pt_s[i] = p.page_tab[b * p.NB + i];
+  }
   float acc[kMaxAcc];
 #pragma unroll
   for (int k = 0; k < kMaxAcc; ++k) acc[k] = 0.f;
@@ -183,7 +202,12 @@ __global__ void __launch_bounds__(kThreads) fused_kv_attn_kernel(Params p) {
 
   const int nbv = p.nb_valid[b];
   for (int n = 0; n < nbv; ++n) {
-    const size_t blk = bh * p.NB + n;
+    size_t blk = bh * p.NB + n;
+    if (p.page_tab != nullptr) {
+      const int page = pt_s[n];  // the same value in every thread of the CTA
+      if (page < 0 || page >= p.P) continue;
+      blk = static_cast<size_t>(h) * p.P + page;
+    }
     if (p.raw) {
       decode_tile(static_cast<const __nv_bfloat16*>(p.k_store) + blk * T * D,
                   nullptr, nullptr, nullptr, 0, 0, true, T, D, tile, mn, st, words);
@@ -240,8 +264,9 @@ const char* fused_kv_attn_error_string(int code) {
 int fused_kv_attn_launch(const void* q, const void* k_store, const void* k_min,
                          const void* k_step, const void* v_store, const void* v_min,
                          const void* v_step, const void* k_buf, const void* v_buf,
-                         const void* nb_valid, const void* buf_len, void* out,
-                         int B, int Hkv, int G, int D, int T, int NB, int Wk, int Wv,
+                         const void* nb_valid, const void* buf_len, const void* page_tab,
+                         void* out, int B, int Hkv, int G, int D, int T, int NB, int P,
+                         int Wk, int Wv,
                          int bits_k, int bits_v, int raw, float scale, void* stream) {
   Params p;
   p.q = static_cast<const float*>(q);
@@ -255,14 +280,16 @@ int fused_kv_attn_launch(const void* q, const void* k_store, const void* k_min,
   p.v_buf = static_cast<const __nv_bfloat16*>(v_buf);
   p.nb_valid = static_cast<const int*>(nb_valid);
   p.buf_len = static_cast<const int*>(buf_len);
+  p.page_tab = static_cast<const int*>(page_tab);
   p.out = static_cast<float*>(out);
-  p.Hkv = Hkv; p.G = G; p.D = D; p.T = T; p.NB = NB; p.Wk = Wk; p.Wv = Wv;
+  p.Hkv = Hkv; p.G = G; p.D = D; p.T = T; p.NB = NB; p.P = P; p.Wk = Wk; p.Wv = Wv;
   p.bits_k = bits_k; p.bits_v = bits_v; p.raw = raw; p.scale = scale;
   const int U = D > T ? D : T;
   const int Wmax = Wk > Wv ? Wk : Wv;
   const size_t smem = sizeof(float) * (static_cast<size_t>(T) * (D + 1) + G * D + G * T
                                        + 2 * U + 3 * G)
-                      + sizeof(uint32_t) * static_cast<size_t>(raw ? 0 : Wmax);
+                      + sizeof(uint32_t) * static_cast<size_t>(raw ? 0 : Wmax)
+                      + sizeof(int) * static_cast<size_t>(page_tab != nullptr ? NB : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(fused_kv_attn_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -19,8 +19,12 @@
 // the packed words and scales back.
 //
 // One CTA per (row, KV head, block) and tensor (blockIdx.y: 0 = K, 1 = V).
-// Rows whose slot is the drop sentinel (slot >= NB, "this row does not flush
-// now") return at once and write nothing.  The decode path therefore launches
+// The store is a per-row ring ([B, H, NB, ...]) or, in paged mode, the shared
+// arena of one layer ([1, H, P, ...]): with a store batch extent of 1 every
+// row writes to [0, h, slot], the slot being an arena page that the caller
+// translated through the row's page table.  Rows whose slot is the drop
+// sentinel (slot >= the store's block extent, NB or P: "this row does not
+// flush now", or an unassigned page) return at once and write nothing.  The decode path therefore launches
 // the kernel on every step without asking the host whether any row flushes:
 // the JAX reference skips the encode with a device-side lax.cond, and a
 // host-side test here would stall every layer of every step.
@@ -41,9 +45,9 @@ constexpr int kThreads = 256;
 
 struct Tensor {
   const void* x;          // [B, H, n, T, D] raw blocks, bf16 or f32
-  uint32_t* words;        // [B, H, NB, W]
-  __nv_bfloat16* mn;      // [B, H, NB, U]
-  __nv_bfloat16* st;      // [B, H, NB, U]
+  uint32_t* words;        // [Bs, H, NB, W], Bs = store_batch
+  __nv_bfloat16* mn;      // [Bs, H, NB, U]
+  __nv_bfloat16* st;      // [Bs, H, NB, U]
   int bits;
   float rel_scale;
   int kivi;               // step = (max-min)/(2^b-1) instead of rel_scale*(max-min)
@@ -53,7 +57,8 @@ struct Tensor {
 struct Params {
   Tensor t[2];
   const int* slots;       // [B, n]; slot >= NB (or < 0) drops the write
-  int B, H, n, T, D, NB, x_bf16;
+  int B, H, n, T, D, NB, x_bf16;  // NB: the store's block extent (ring or arena)
+  int store_batch;        // B (one ring a row) or 1 (the shared arena)
 };
 
 __global__ void __launch_bounds__(kThreads) pack_encode_kernel(Params p) {
@@ -83,7 +88,8 @@ __global__ void __launch_bounds__(kThreads) pack_encode_kernel(Params p) {
   }
   __syncthreads();
 
-  const size_t dst = (static_cast<size_t>(b) * p.H + h) * p.NB + slot;
+  const int sb = p.store_batch == 1 ? 0 : b;
+  const size_t dst = (static_cast<size_t>(sb) * p.H + h) * p.NB + slot;
   for (int u = tid; u < U; u += nt) {
     float lo = CUDART_INF_F, hi = -CUDART_INF_F;
     if (td.token_wise) {
@@ -141,7 +147,8 @@ int pack_encode_launch(const void* kx, void* kwords, void* kmn, void* kst,
                        const void* vx, void* vwords, void* vmn, void* vst,
                        int vbits, float vrel, int vkivi, int vtoken,
                        const void* slots, int n_tensors, int x_bf16,
-                       int B, int H, int n, int T, int D, int NB, void* stream) {
+                       int B, int H, int n, int T, int D, int NB, int store_batch,
+                       void* stream) {
   Params p;
   p.t[0] = Tensor{kx, static_cast<uint32_t*>(kwords), static_cast<__nv_bfloat16*>(kmn),
                   static_cast<__nv_bfloat16*>(kst), kbits, krel, kkivi, ktoken};
@@ -149,6 +156,7 @@ int pack_encode_launch(const void* kx, void* kwords, void* kmn, void* kst,
                   static_cast<__nv_bfloat16*>(vst), vbits, vrel, vkivi, vtoken};
   p.slots = static_cast<const int*>(slots);
   p.B = B; p.H = H; p.n = n; p.T = T; p.D = D; p.NB = NB; p.x_bf16 = x_bf16;
+  p.store_batch = store_batch;
   const int U = D > T ? D : T;
   const size_t smem = sizeof(float) * (static_cast<size_t>(T) * D + 2 * U);
   if (smem > 48 * 1024) {

@@ -1,11 +1,14 @@
 """The Fetch kernel: in-place decompression + flash-decode attention over the
 compressed cache (``csrc/fused_kv_attn.cu``), and its plain version.
 
-Replaces the Pallas kernel of ``repro.kernels.fused_kv_attn`` (dense tiles:
-raw passthrough and packed/kivi no-straddle words).  One CTA per (row, KV
-head) decodes each live block's K and V tile in shared memory, runs the
-G query rows' scores and online softmax in float32, and finally folds in
-the raw buffer masked by ``buf_len``.
+Replaces the Pallas kernel of ``repro.kernels.fused_kv_attn`` (dense and
+paged tiles: raw passthrough and packed/kivi no-straddle words).  One CTA
+per (row, KV head) decodes each live block's K and V tile in shared memory,
+runs the G query rows' scores and online softmax in float32, and finally
+folds in the raw buffer masked by ``buf_len``.  Given a page table, block
+``n`` of row ``b`` is read from arena page ``page_tab[b, n]`` and an
+unassigned entry is skipped; those launches count as
+``fused_kv_attn_paged``.
 
 ``fused_cache_attention`` takes the plain version (``ref.
 fused_cache_attention_ref``) only for CPU tensors; for CUDA tensors it
@@ -24,24 +27,29 @@ from repro_torch.kernels.ref import fused_cache_attention_ref as plain
 
 NAME = "fused_kv_attn"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 12 + [_I] * 11 + [ctypes.c_float, _P]
+_ARGTYPES = [_P] * 13 + [_I] * 12 + [ctypes.c_float, _P]
 
 
 def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
-                          k_buf, v_buf, nb_valid, buf_len, *, tile,
+                          k_buf, v_buf, nb_valid, buf_len, page_tab=None, *, tile,
                           block_size: int, scale: float | None = None) -> torch.Tensor:
     """Decode attention over (store ∥ buffer) -> [B, Hq, D] float32.
 
     q f32 [B, Hq, D]; stores/units/buffers as ``LayerKVCache`` holds them;
-    nb_valid (already clamped to NB) and buf_len int32 [B]."""
+    nb_valid (already clamped to NB) and buf_len int32 [B].  ``page_tab``
+    int32 [B, NB] marks a paged cache: the stores are then the shared arena
+    [1, Hkv, P, ...]."""
     if q.device.type == "cpu":
         return plain(q, k_store, k_min, k_step, v_store, v_min, v_step, k_buf,
-                     v_buf, nb_valid, buf_len, tile=tile, block_size=block_size,
-                     scale=scale)
+                     v_buf, nb_valid, buf_len, page_tab, tile=tile,
+                     block_size=block_size, scale=scale)
     dev = q.device
     runtime.require(dev.type == "cuda", f"{NAME}: q on {dev}")
     B, Hq, D = q.shape
-    Hkv, NB = k_store.shape[1], k_store.shape[2]
+    Hkv, P = k_store.shape[1], k_store.shape[2]
+    paged = page_tab is not None
+    NB = page_tab.shape[-1] if paged else P
+    Bs = 1 if paged else B  # the arena's batch extent is 1
     T = block_size
     G = Hq // Hkv
     max_acc = runtime.library(NAME).fused_kv_attn_max_acc()
@@ -54,13 +62,15 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
     packed = tile.has_scales
     store_dt = i32 if packed else bf
     checks = [("q", q, torch.float32, (B, Hq, D)),
-              ("k_store", k_store, store_dt, (B, Hkv, NB, *tile.k_tile)),
-              ("v_store", v_store, store_dt, (B, Hkv, NB, *tile.v_tile)),
+              ("k_store", k_store, store_dt, (Bs, Hkv, P, *tile.k_tile)),
+              ("v_store", v_store, store_dt, (Bs, Hkv, P, *tile.v_tile)),
               ("k_buf", k_buf, bf, (B, Hkv, T, D)), ("v_buf", v_buf, bf, (B, Hkv, T, D)),
               ("nb_valid", nb_valid, i32, (B,)), ("buf_len", buf_len, i32, (B,))]
     if packed:
-        checks += [("k_min", k_min, bf, (B, Hkv, NB, D)), ("k_step", k_step, bf, (B, Hkv, NB, D)),
-                   ("v_min", v_min, bf, (B, Hkv, NB, T)), ("v_step", v_step, bf, (B, Hkv, NB, T))]
+        checks += [("k_min", k_min, bf, (Bs, Hkv, P, D)), ("k_step", k_step, bf, (Bs, Hkv, P, D)),
+                   ("v_min", v_min, bf, (Bs, Hkv, P, T)), ("v_step", v_step, bf, (Bs, Hkv, P, T))]
+    if paged:
+        checks.append(("page_tab", page_tab, i32, (B, NB)))
     for name, t, dt, shape in checks:
         runtime.check_tensor(NAME, name, t, dt, shape, dev)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
@@ -68,7 +78,9 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
     runtime.launch(
         NAME, _ARGTYPES, q.data_ptr(), k_store.data_ptr(), ptr(k_min), ptr(k_step),
         v_store.data_ptr(), ptr(v_min), ptr(v_step), k_buf.data_ptr(), v_buf.data_ptr(),
-        nb_valid.data_ptr(), buf_len.data_ptr(), out.data_ptr(), B, Hkv, G, D, T, NB,
+        nb_valid.data_ptr(), buf_len.data_ptr(), page_tab.data_ptr() if paged else None,
+        out.data_ptr(), B, Hkv, G, D, T, NB, P,
         tile.k_tile[0] if packed else 0, tile.v_tile[0] if packed else 0,
-        tile.bits_k, tile.bits_v, 0 if packed else 1, float(scale), runtime.stream_ptr(dev))
+        tile.bits_k, tile.bits_v, 0 if packed else 1, float(scale), runtime.stream_ptr(dev),
+        count=f"{NAME}_paged" if paged else NAME)
     return out

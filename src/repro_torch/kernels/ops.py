@@ -91,5 +91,5 @@ def cache_decode_attention(cache, q: torch.Tensor, scale: float | None = None) -
         cache.v_store, cache.v_min, cache.v_step,
         cache.k_buf, cache.v_buf,
         torch.clamp(cache.n_flushed, max=spec.n_blocks), cache.buf_len,
-        tile=tile, block_size=spec.block_size, scale=scale)
+        cache.page_tab if spec.paged else None, tile=tile, block_size=spec.block_size, scale=scale)
     return out.to(q.dtype)

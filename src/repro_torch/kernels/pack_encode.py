@@ -6,8 +6,11 @@ contract of the reference's ``PackedLayout.compress_blocks`` (what its server
 stores): packed words plus bf16 unit minima and steps, codes from the
 float32 step, and the kivi step as an option.  One launch encodes K and V.
 
-Rows whose slot is the drop sentinel (``slot >= NB``) write nothing, so the
-decode path launches it on every step without a host-side check.
+The stores are per-row rings ``[B, H, NB, ...]`` or, in paged mode, one
+layer's shared arena ``[1, H, P, ...]`` whose slots are arena pages.  Rows
+whose slot is the drop sentinel (``slot >=`` the store's block extent)
+write nothing, so the decode path launches it on every step without a
+host-side check.
 ``pack_encode`` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
 """
@@ -25,7 +28,7 @@ from repro_torch.kernels.ref import quant_pack_ref
 NAME = "pack_encode"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TENSOR_ARGS = [_P] * 4 + [_I, _F, _I, _I]  # x, words, mn, st, bits, rel, kivi, token
-_ARGTYPES = _TENSOR_ARGS * 2 + [_P] + [_I] * 8 + [_P]
+_ARGTYPES = _TENSOR_ARGS * 2 + [_P] + [_I] * 9 + [_P]
 
 
 def pack_encode_plain(kb, vb, slots, k_store, k_min, k_step, v_store, v_min, v_step,
@@ -47,8 +50,9 @@ def pack_encode(kb, vb, slots, k_store, k_min, k_step, v_store, v_min, v_step,
     """Store stage, in place.
 
     kb/vb [B, H, n, T, D] raw blocks (bf16 or f32); slots int32 [B, n] ring
-    slots (>= NB drops the row); k_store/v_store int32 [B, H, NB, W];
-    k_min/k_step bf16 [B, H, NB, D]; v_min/v_step bf16 [B, H, NB, T]."""
+    slots or arena pages (>= NB drops the row); k_store/v_store int32
+    [Bs, H, NB, W]; k_min/k_step bf16 [Bs, H, NB, D]; v_min/v_step bf16
+    [Bs, H, NB, T], where Bs is B (rings) or 1 (the paged arena, NB = P)."""
     if kb.device.type == "cpu":
         return pack_encode_plain(
             kb, vb, slots, k_store, k_min, k_step, v_store, v_min, v_step,
@@ -89,7 +93,8 @@ def _launch(tensors, slots) -> None:
     runtime.require(x0.dtype in (torch.bfloat16, torch.float32),
                     f"{NAME}: blocks must be bf16 or f32, got {x0.dtype}")
     B, H, n, T, D = x0.shape
-    NB = tensors[0][1].shape[2]
+    Bs, NB = tensors[0][1].shape[0], tensors[0][1].shape[2]
+    runtime.require(Bs in (B, 1), f"{NAME}: store batch extent {Bs} is neither {B} nor 1")
     runtime.check_tensor(NAME, "slots", slots, torch.int32, (B, n), dev)
     flat = []
     for x, words, mn, st, bits, rel, kivi, tok in tensors:
@@ -98,13 +103,13 @@ def _launch(tensors, slots) -> None:
         U = T if tok else D
         runtime.check_tensor(NAME, "blocks", x, x0.dtype, (B, H, n, T, D), dev)
         runtime.check_tensor(NAME, "words", words, torch.int32,
-                             (B, H, NB, (T * D + cpw - 1) // cpw), dev)
-        runtime.check_tensor(NAME, "mn", mn, torch.bfloat16, (B, H, NB, U), dev)
-        runtime.check_tensor(NAME, "step", st, torch.bfloat16, (B, H, NB, U), dev)
+                             (Bs, H, NB, (T * D + cpw - 1) // cpw), dev)
+        runtime.check_tensor(NAME, "mn", mn, torch.bfloat16, (Bs, H, NB, U), dev)
+        runtime.check_tensor(NAME, "step", st, torch.bfloat16, (Bs, H, NB, U), dev)
         flat += [x.data_ptr(), words.data_ptr(), mn.data_ptr(), st.data_ptr(),
                  bits, float(rel), int(kivi), int(tok)]
     if len(tensors) == 1:
         flat += [None, None, None, None, 1, 0.0, 0, 0]
     runtime.launch(NAME, _ARGTYPES, *flat, slots.data_ptr(), len(tensors),
-                   int(x0.dtype == torch.bfloat16), B, H, n, T, D, NB,
+                   int(x0.dtype == torch.bfloat16), B, H, n, T, D, NB, Bs,
                    runtime.stream_ptr(dev))

@@ -27,6 +27,7 @@ def fused_cache_attention_ref(
     v_store, v_min, v_step,  # [B, Hkv, NB, *tile.v_tile], units [B, Hkv, NB, T]
     k_buf, v_buf,           # [B, Hkv, T, D]
     nb_valid, buf_len,      # int [B] per-row valid blocks / buffer lengths
+    page_tab=None,          # int32 [B, NB] paged: ring slot -> arena page
     *,
     tile,                   # layouts.FusedTileSpec
     block_size: int,
@@ -35,8 +36,26 @@ def fused_cache_attention_ref(
     """Plain version of the Fetch kernel: decodes every store tile (the
     materialized dequantized store, deliberately — the kernel never forms
     it), one softmax over the live blocks, then the two-part combine with
-    the raw buffer tail.  Returns the normalized output [B, Hq, D] f32."""
+    the raw buffer tail.  Returns the normalized output [B, Hq, D] f32.
+
+    With ``page_tab`` the stores are a shared arena ``[1, Hkv, P, ...]``:
+    each row's tiles are gathered through its table first, and a block whose
+    entry is unassigned (< 0, or past the arena) contributes nothing,
+    whatever ``nb_valid`` says."""
     B, Hq, D = q.shape
+    page_ok = None
+    if page_tab is not None:
+        P = k_store.shape[2]
+        page_ok = (page_tab >= 0) & (page_tab < P)  # [B, NB]
+        idx = torch.clamp(page_tab, 0, P - 1).long()
+
+        def gather(a):
+            return a[0][:, idx].movedim(1, 0)  # [B, Hkv, NB, ...]
+
+        k_store, v_store = gather(k_store), gather(v_store)
+        if tile.has_scales:
+            k_min, k_step = gather(k_min), gather(k_step)
+            v_min, v_step = gather(v_min), gather(v_step)
     Hkv, NB = k_store.shape[1], k_store.shape[2]
     G, T = Hq // Hkv, block_size
     if scale is None:
@@ -47,6 +66,8 @@ def fused_cache_attention_ref(
     qg = q.reshape(B, Hkv, G, D).to(torch.float32)
     s = torch.einsum("bhgd,bhntd->bhgnt", qg, kd) * scale
     ok_b = torch.arange(NB, device=q.device)[None, :] < nbv[:, None]  # [B, NB]
+    if page_ok is not None:
+        ok_b = ok_b & page_ok
     ok = ok_b[:, None, None, :, None]
     s = torch.where(ok, s, torch.full_like(s, NEG_INIT))
     s2 = s.reshape(B, Hkv, G, NB * T)

@@ -30,8 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("fused_kv_attn", "pack_encode")
 
 # Launches of each hand-written kernel since the last reset: each wrapper
-# adds one where it launches its kernel, and nowhere else.
-launches = {name: 0 for name in KERNELS}
+# adds one where it launches its kernel, and nowhere else.  The Fetch
+# kernel's paged variant (same library, a page table given) counts under a
+# key of its own, so a run shows which path went through the kernel.
+launches = {name: 0 for name in ("fused_kv_attn", "fused_kv_attn_paged", "pack_encode")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # ptxas register / shared-memory report
@@ -115,10 +117,10 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes, *args) -> None:
+def launch(name: str, argtypes, *args, count: str | None = None) -> None:
     """Call ``<name>_launch(*args)`` of the kernel library, raise if the CUDA
     runtime refused the launch (the C side returns cudaGetLastError), and
-    count the launch."""
+    count the launch under ``count`` (default: ``name``)."""
     fn = getattr(library(name), f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -126,7 +128,7 @@ def launch(name: str, argtypes, *args) -> None:
     if rc != 0:
         msg = getattr(library(name), f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    launches[name] += 1
+    launches[count or name] += 1
 
 
 def stream_ptr(device: torch.device) -> int:

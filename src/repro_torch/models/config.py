@@ -38,7 +38,7 @@ class ModelConfig:
     rel_scale_v: float = 0.15
     kivi_bits: int = 2
     cache_overrides: tuple = ()
-    cache_mode: str = "dense"  # "paged" belongs to a later slice
+    cache_mode: str = "dense"  # "dense" | "paged" (repro_torch.core.pool)
     # Decode-attention backend (repro_torch.kernels.ops registry): "auto"
     # runs the fused Fetch kernel for CUDA tensors and the blockwise scan on
     # the CPU; "xla"/"fused" pin a path.

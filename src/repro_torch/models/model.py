@@ -9,7 +9,10 @@ reference's stacked pytree onto them one layer at a time.
 
 The decode state is ``{"kv": [LayerKVCache, ...]}``, one cache per layer
 (each with its own spec, so per-layer policies need no special case).
-``decode_step`` and ``prefill_chunk`` update the caches in place.
+``decode_step`` and ``prefill_chunk`` update the caches in place.  Under
+``cache_mode="paged"`` with a sized pool the caches hold one shared arena
+each plus per-row page tables (DESIGN.md §10); the functions at the end of
+the module are the scheduler's page-table and encode-to-page operations.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import cache as kvcache
+from repro_torch.core import pool
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
@@ -49,25 +53,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.floa
     return params
 
 
-def cache_specs(cfg: ModelConfig, max_seq: int) -> tuple[kvcache.CacheSpec, ...]:
-    """Per-layer specs resolved from the model's CompressionPolicy."""
+def cache_specs(cfg: ModelConfig, max_seq: int,
+                pool_pages: int = 0) -> tuple[kvcache.CacheSpec, ...]:
+    """Per-layer specs resolved from the model's CompressionPolicy.
+    ``pool_pages`` sizes the shared paged arena (``cache_mode="paged"``);
+    with the default 0 a paged policy resolves to its dense twin."""
     return cfg.compression_policy().layer_specs(
-        cfg.n_layers, max_seq=max_seq, window=cfg.sliding_window)
+        cfg.n_layers, max_seq=max_seq, window=cfg.sliding_window, pool_pages=pool_pages)
 
 
-def cache_spec(cfg: ModelConfig, max_seq: int) -> kvcache.CacheSpec:
+def cache_spec(cfg: ModelConfig, max_seq: int, pool_pages: int = 0) -> kvcache.CacheSpec:
     """Layer-0 spec (THE spec under a uniform policy)."""
     return cfg.compression_policy().spec_for_layer(
-        0, max_seq=max_seq, window=cfg.sliding_window)
+        0, max_seq=max_seq, window=cfg.sliding_window, pool_pages=pool_pages)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      dtype=torch.bfloat16, device="cuda"):
-    """Fresh (empty) decode state for all layers."""
+                      dtype=torch.bfloat16, device="cuda", pool_pages: int = 0):
+    """Fresh (empty) decode state for all layers.  ``pool_pages`` (serving
+    only) sizes each layer's shared arena under ``cache_mode="paged"``."""
     _check_family(cfg)
     return {"kv": [kvcache.init_layer_cache(s, batch, cfg.n_kv_heads,
                                             cfg.resolved_head_dim, dtype, device)
-                   for s in cache_specs(cfg, max_seq)]}
+                   for s in cache_specs(cfg, max_seq, pool_pages)]}
 
 
 def insert_decode_row(dst_state, src_state, row: int):
@@ -84,13 +92,63 @@ def insert_decode_row(dst_state, src_state, row: int):
     return dst_state
 
 
+def insert_decode_row_paged(dst_state, src_state, row: int, pages: torch.Tensor):
+    """Paged admission splice: land a batch-1 *dense* decode state (the
+    paged spec's dense twin) in row ``row`` of a paged one, scattering its
+    blocks into the arena pages ``pages`` (int32 [NB], -1 where the prompt
+    left the slot empty) and writing the page-table row."""
+    for d, s in zip(dst_state["kv"], src_state["kv"]):
+        pool.splice_row(d, s, row, pages)
+    return dst_state
+
+
+def assign_cache_pages(state, rows: torch.Tensor, slots: torch.Tensor, pages: torch.Tensor):
+    """Point ``page_tab[rows[i], slots[i]] = pages[i]`` in every layer's cache:
+    the scheduler calls this right before the decode step whose buffer flush
+    lands in those pages."""
+    for c in state["kv"]:
+        pool.assign_pages(c, rows, slots, pages)
+    return state
+
+
 def clear_cache_row(state, row: int):
-    """Empty row ``row`` of every layer's cache (a retired slot): nothing of
-    the old request stays attendable, and the Fetch kernel's loop over the
-    row's live blocks ends at once while the vacated slot idles."""
+    """Empty row ``row`` of every layer's cache (a retired or preempted
+    slot): nothing of the old request stays attendable, and the Fetch
+    kernel's loop over the row's live blocks ends at once while the vacated
+    slot idles.  In paged mode the page-table row is unassigned too, so the
+    slot's idle decode can never write into pages re-issued to another
+    request."""
     for c in state["kv"]:
         c.n_flushed[row] = 0
         c.buf_len[row] = 0
+        if c.spec.paged:
+            pool.clear_row(c, row)
+    return state
+
+
+def chunk_state_view(state, pages: torch.Tensor, pos0: int):
+    """Batch-1 view of one row's chunked prefill over the LIVE paged state
+    (DESIGN.md §13): every layer's view shares its arena, so
+    ``prefill_chunk`` on the view encodes each full chunk straight into the
+    pooled pages ``pages`` (int32 [NB]) while the batched state is
+    untouched."""
+    return {"kv": [pool.chunk_view(c, pages, pos0) for c in state["kv"]]}
+
+
+def adopt_chunk_stores(state, chunked):
+    """Fold a chunk step's arena updates (made through a
+    ``chunk_state_view``) back into the live state."""
+    for d, s in zip(state["kv"], chunked["kv"]):
+        pool.adopt_stores(d, s)
+    return state
+
+
+def install_chunk_row(state, chunked, row: int, pages: torch.Tensor):
+    """Finish a chunked prefill: splice the final view's buffers and lengths
+    into row ``row`` and point its page-table row at ``pages``, the moment
+    the row becomes attendable by the decode batch."""
+    for d, s in zip(state["kv"], chunked["kv"]):
+        pool.install_row(d, s, row, pages)
     return state
 
 

@@ -3,21 +3,23 @@ registry that names them (the port's own copy of ``repro.obs.metrics``;
 host-side Python, no tensors).
 
 * ``Counter`` — monotone event count (``inc``).
+* ``Gauge`` — last-written level; ``set_max`` keeps a high-water mark (the
+  paged pool's ``high_water_pages``).
 * ``Histogram`` — fixed-bucket distribution for latencies; ``observe`` is
   one ``bisect`` plus two scalar adds, and quantiles interpolate inside the
   winning bucket (the Prometheus ``histogram_quantile`` estimate).
 * ``MetricsRegistry`` — dotted-name -> metric map with a nested-dict
   ``snapshot()`` (the substrate of ``Server.stats()``).
 
-The reference's gauges and Prometheus exposition come with the telemetry
-slice of the port.
+The reference's Prometheus exposition comes with the telemetry slice of
+the port.
 """
 
 from __future__ import annotations
 
 from bisect import bisect_right
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "LATENCY_BUCKETS_S"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "LATENCY_BUCKETS_S"]
 
 # Default latency edges: log-spaced 100us .. ~2min, the span between one
 # cached decode dispatch on accelerator and a cold multi-minute prefill on
@@ -36,6 +38,25 @@ class Counter:
 
     def inc(self, n: int = 1) -> None:
         self.value += n
+
+    def snapshot(self):
+        return self.value
+
+
+class Gauge:
+    """Last-written level; ``set_max`` keeps a high-water mark."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def set(self, v) -> None:
+        self.value = v
+
+    def set_max(self, v) -> None:
+        if v > self.value:
+            self.value = v
 
     def snapshot(self):
         return self.value

@@ -128,6 +128,12 @@ def test_attend_backends_match_reference(backend, rng):
 
 
 def test_paged_mode_raises_naming_the_later_slice():
-    spec = TC.CacheSpec(mode="paged")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TC.init_layer_cache(spec, 1, 1, 16, device="cpu")
+    """Paged mode is served now; what still raises is what the reference
+    rejects too: a paged spec without arena pages, and bulk prefill into a
+    paged spec (the server fills arenas chunk by chunk)."""
+    with pytest.raises(ValueError, match="pool_pages"):
+        TC.CacheSpec(mode="paged")
+    spec = TC.CacheSpec(mode="paged", pool_pages=4, block_size=8, max_seq=32)
+    k = torch.zeros((1, 1, 16, 16))
+    with pytest.raises(ValueError, match="from_dense"):
+        TC.prefill(spec, k, k)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card
-(marked ``cuda``; each test skips itself where there is no card).  No JAX
+"""The port's CUDA kernels against their plain versions, on the card, dense
+and paged (marked ``cuda``; each test skips itself where there is no card).  No JAX
 here, so the file also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -10,7 +10,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import cache as TC  # noqa: E402
-from repro_torch.kernels import fused_kv_attn, pack_encode  # noqa: E402
+from repro_torch.core import pool as TP  # noqa: E402
+from repro_torch.kernels import fused_kv_attn, pack_encode, runtime  # noqa: E402
 
 
 def _args(c, nb):
@@ -115,3 +116,97 @@ def test_kernels_on_card_match_cpu_path_on_grid(B, Hkv, G, S, D, T, layout, cuda
     want = TC.attend(cc, q, backend="fused")
     got = TC.attend(gc, q.to(cuda), backend="fused").cpu()
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def _paged(c, spec, device, hole=True, seed=0):
+    """Re-house a filled dense cache in a shuffled arena of B*NB + 8 pages,
+    with one unassigned entry below row 0's nb_valid."""
+    B, NB = c.batch, spec.n_blocks
+    g = torch.Generator().manual_seed(seed)
+    pages = torch.randperm(B * NB + 8, generator=g)[:B * NB].reshape(B, NB).to(torch.int32)
+    if hole:
+        pages[0, 3] = -1
+    return TP.from_dense(c, B * NB + 8, pages.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "kivi", "raw"])
+def test_paged_fetch_kernel_matches_plain_on_card(layout, cuda):
+    spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda)
+    pc = _paged(c, spec, cuda)
+    q = torch.randn((4, 32, 128), device=cuda)
+    args = _args(pc, torch.clamp(pc.n_flushed, max=spec.n_blocks)) + (pc.page_tab,)
+    kw = dict(tile=spec.impl.tile_decode(spec, 128), block_size=64)
+    runtime.reset_launches()
+    got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
+    assert runtime.launches["fused_kv_attn_paged"] == 1 and runtime.launches["fused_kv_attn"] == 0
+    want = fused_kv_attn.plain(q, *args, **kw)
+    assert float((got - want).abs().max()) <= 1e-4
+    # without the hole the paged kernel reads what the dense one reads
+    full = _paged(c, spec, cuda, hole=False)
+    a = fused_kv_attn.fused_cache_attention(
+        q, *_args(full, torch.clamp(full.n_flushed, max=spec.n_blocks)), full.page_tab, **kw)
+    b = fused_kv_attn.fused_cache_attention(
+        q, *_args(c, torch.clamp(c.n_flushed, max=spec.n_blocks)), **kw)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "kivi"])
+def test_store_kernel_into_arena_bit_exact_on_card(layout, cuda):
+    """Rows flush into arena pages through the page table: bit-exact against
+    the plain version; a row that does not flush and a row whose entry is
+    unassigned leave the arena untouched."""
+    spec, c = _filled_cache(layout, [4, 4, 4, 4], [0, 0, 0, 0], cuda)
+    pc = _paged(c, spec, cuda)  # row 0, slot 3 unassigned
+    kb = torch.randn((4, 4, 1, 64, 128), device=cuda).to(torch.bfloat16)
+    vb = torch.randn((4, 4, 1, 64, 128), device=cuda).to(torch.bfloat16)
+    NB, P = spec.n_blocks, pc.k_store.shape[2]
+    logical = torch.tensor([[3], [5], [NB], [0]], dtype=torch.int32, device=cuda)
+    slots = TP.lookup_slots(pc.page_tab, logical, NB, P).to(torch.int32)
+    assert slots[0, 0] == P and slots[2, 0] == P  # unassigned, no flush
+    names = TP.STORE_FIELDS
+    a = [getattr(pc, f).clone() for f in names]
+    b = [getattr(pc, f).clone() for f in names]
+    kw = dict(bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
+              rel_scale_v=spec.rel_scale_v, kivi=spec.impl.kivi_step)
+    pack_encode.pack_encode(kb, vb, slots, *a, **kw)
+    pack_encode.pack_encode_plain(kb, vb, slots, *b, **kw)
+    written = [int(slots[1, 0]), int(slots[3, 0])]
+    keep = [p for p in range(P) if p not in written]
+    for f, x, y, old in zip(names, a, b, (getattr(pc, f) for f in names)):
+        bits = (lambda t: t.view(torch.int16)) if x.dtype == torch.bfloat16 else (lambda t: t)
+        assert torch.equal(bits(x), bits(y)), f
+        assert torch.equal(bits(x[:, :, keep]), bits(old[:, :, keep])), f
+
+
+@pytest.mark.cuda
+def test_paged_server_equals_dense_on_card(cuda):
+    """The smoke model served paged (a pool tight enough to preempt) and
+    dense on the card: the same greedy tokens, and the paged decode went
+    through the paged Fetch kernel and the Store kernel."""
+    import numpy as np
+
+    from repro_torch.models import model as TM
+    from repro_torch.models import registry as TR
+    from repro_torch.serve import scheduler as TS
+
+    cfg = TR.get_smoke_config("yi_6b")
+    params = TM.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, 17).astype(np.int32) for _ in range(3)]
+    page_b = sum(TP.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim)
+                 for s in TM.cache_specs(cfg, 256))
+    out = {}
+    for mode, extra in (("dense", {}), ("paged", {"pool_hbm_bytes": 5 * page_b})):
+        srv = TS.Server(cfg, params, TS.ServerConfig(max_slots=3, max_seq=256, cache_mode=mode,
+                                                     attn_backend="fused", **extra))
+        hs = [srv.submit(TS.Request(prompt=p, max_new_tokens=10)) for p in prompts]
+        runtime.reset_launches()
+        srv.run()
+        out[mode] = ([h.result().tokens.tolist() for h in hs], dict(runtime.launches),
+                     srv.preemptions)
+    assert out["paged"][0] == out["dense"][0]
+    assert out["paged"][2] >= 1
+    assert out["paged"][1]["fused_kv_attn_paged"] > 0 and out["paged"][1]["fused_kv_attn"] == 0
+    assert out["paged"][1]["pack_encode"] > 0

@@ -3,7 +3,8 @@
 tests/test_models.py::test_compressed_cache_decode_tracks_raw), and its own
 exactness contracts on the CPU: batched == solo and chunked == solo
 admission, bit-exact.  Also: entry points need CUDA unless told otherwise,
-and options of later slices raise."""
+and options of later slices raise.  The paged mode is held in
+tests/test_torch_pool.py."""
 
 import dataclasses
 
@@ -149,9 +150,9 @@ def test_entry_points_need_cuda_unless_told(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("cache_mode", "paged"), ("prefix_cache", "on"), ("mesh", object()),
+    ("prefix_cache", "on"), ("mesh", object()),
     ("trace", "events"), ("faults", object()), ("audit_every", 2),
-    ("max_pending", 4), ("default_deadline_s", 1.0), ("pool_hbm_bytes", 1 << 20)])
+    ("max_pending", 4), ("default_deadline_s", 1.0)])
 def test_later_slice_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="later slice"):
         TS.ServerConfig(**{field: value})
