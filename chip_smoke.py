@@ -3,21 +3,31 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero before the result lines:
+Phases, in the order they run (11 after 4, 12 after 9, times last); any
+failure exits non-zero before the result lines:
 
 1. Device: needs CUDA; prints the card's name and power limit.
-2. Build: compiles both hand-written kernels from ``src/repro_torch/csrc``
-   (one nvcc each, in parallel) and prints the build seconds and ptxas
-   report.
+2. Build: compiles the three hand-written kernel libraries from
+   ``src/repro_torch/csrc`` (one nvcc each, in parallel) and prints the build
+   seconds and ptxas report.
 3. Kernel vs plain at Yi-6B shapes (B=4, Hkv=4, G=8, D=128, T=64, NB=64,
    ragged per-row lengths): the Fetch kernel within FETCH_ATOL of its plain
-   version for the packed, kivi and raw layouts; the Store kernel's words
-   and bf16 scales bit-exact, dropped rows untouched.
+   version for the packed, kivi, raw and huffman layouts, and on the same
+   blocks the huffman Fetch bit-identical to the packed Fetch; the Store
+   kernel's words and bf16 scales bit-exact, dropped rows untouched.
 4. Paged kernel vs plain at Yi-6B shapes (B=8, arena of 128 pages, shuffled
    page tables, ragged lengths, unassigned entries below a row's live
    blocks): the paged Fetch within FETCH_ATOL of its plain version for
-   packed, kivi and raw; the Store into arena pages bit-exact, rows that do
-   not flush or whose entry is unassigned leaving the arena untouched.
+   packed, kivi, raw and huffman, huffman bit-identical to packed on the same
+   blocks; the Store into arena pages bit-exact, rows that do not flush or
+   whose entry is unassigned leaving the arena untouched.
+11. Huffman decode kernels at Yi-6B width (NBLK = 4 heads x 64 blocks = 256,
+   64 streams of 128 codes) on real huffman K slots, with the layout's
+   default K book and a fitted skewed book (longest code over 8 bits, so 2
+   LUT probes): the public entry points ``huffman_decode`` and
+   ``huffman_attn_scores`` and the slot LUT decode, driven once each per book
+   with the counts zeroed just before; codes bit-exact against the plain
+   versions and equal to the quantized codes, scores within SCORES_ATOL.
 5. Serve, dense: a Server on full-width Yi-6B (random weights from a seed,
    float32, all 32 layers; built once and shared by every serving phase), 4
    requests of several hundred to 1000 prompt tokens, 32 new tokens each,
@@ -40,12 +50,20 @@ Phases, in order; any failure exits non-zero before the result lines:
    paged Fetch and the Store once per layer and the dense Fetch never.  In
    (a) and (c), one decode step with all 8 rows live and one prefill chunk
    are profiled as in phase 7.
+12. Serve huffman (``cache_layout="huffman"``, the same weights): (a) dense
+   on phase 5's requests and server shape, (b) paged on phase 9(a)'s
+   requests and pool bytes.  Every pure decode step must launch the huffman
+   Fetch (dense, or paged) once per layer and nothing else; the chunks must
+   have run the slot LUT decode.  Greedy tokens must equal phase 5's and
+   phase 9(a)'s packed tokens exactly (the same codes, entropy-coded).  One
+   decode step and one chunk of each are profiled as in phase 7.
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
-   float32 operations over 67 TFLOP/s (H100 SXM data sheet).  The paged
-   Fetch is timed at the paged serving run's last lengths, beside the dense
-   Fetch on the same blocks.
+   operations over 67 TFLOP/s (H100 SXM data sheet).  The paged Fetch is
+   timed at the paged serving run's last lengths, beside the dense Fetch on
+   the same blocks; the huffman Fetch at the same lengths as the packed one;
+   the huffman decode kernels at phase 11's shapes.
 
 The last three lines are the card (nvidia-smi), a JSON line with one entry
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -62,6 +80,7 @@ from pathlib import Path
 import numpy as np
 
 FETCH_ATOL = 1e-4      # Fetch kernel vs plain: float32 sums in another order
+SCORES_ATOL = 1e-4     # huffman_attn_scores vs plain: float32 sums in another order
 MIN_AGREEMENT = 1.0    # batched vs solo greedy-token agreement: exact
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12      # H100 SXM float32, outside the tensor cores
@@ -160,23 +179,48 @@ def fetch_args(spec, c):
     return args, dict(tile=spec.impl.tile_decode(spec, D), block_size=T)
 
 
-def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False) -> tuple[float, str]:
+def huffman_slot_bytes(spec, c, nb_valid) -> int:
+    """Bytes of the live huffman slots of dense cache ``c`` that a decode
+    must read: each slot's u16 header and the payload words its streams
+    occupy (the worst-case padding after them is never read)."""
+    import torch
+    from repro_torch.core.layouts import unpack_u16_pairs
+
+    tile = spec.impl.tile_decode(spec, D)
+    live = (torch.arange(c.k_store.shape[2], device="cuda")[None, :]
+            < torch.as_tensor(nb_valid, device="cuda")[:, None])[:, None, :]  # [B, 1, NB]
+    words = 0
+    for store, hdr in ((c.k_store, tile.hdr_k), (c.v_store, tile.hdr_v)):
+        bits = unpack_u16_pairs(store[..., :hdr], T).sum(-1)  # [B, H, NB]
+        words += int(((hdr + (bits + 31) // 32) * live).sum())
+    return 4 * words
+
+
+def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
+                   cache=None) -> tuple[float, str]:
     """Least time for the Fetch work of these inputs: live blocks, valid
     buffer tokens, q in, output out, and the page table when paged (bytes);
     the two products per block and token (ops).  The scales fold into the
     products (q.(mn + st*c) = q.mn + (q*st).c, and the same for V), so
     dequantizing each value is a cost of the kernel's design, not of the
-    function, and is not counted."""
+    function, and is not counted.  Huffman slots count their header and the
+    payload words this data fills (from the dense ``cache``) and the two
+    LUTs once; the entropy decode's integer work is not counted."""
     B = len(nb_valid)
     live = HKV * int(sum(nb_valid))
     toks = HKV * int(sum(buf_len))
     if spec.layout == "raw":
-        blk = 2 * T * D * 2
+        blocks = live * 2 * T * D * 2
         per_blk = 4 * G * T * D + G * T
     else:
-        blk = 4 * (spec.words_k(D) + spec.words_v(D)) + 2 * 2 * (D + T)
+        if spec.layout == "huffman":
+            tile = spec.impl.tile_decode(spec, D)
+            blocks = (huffman_slot_bytes(spec, cache, nb_valid) + live * 2 * 2 * (D + T)
+                      + 4 * (tile.book_k.decode_lut().size + tile.book_v.decode_lut().size))
+        else:
+            blocks = live * (4 * (spec.words_k(D) + spec.words_v(D)) + 2 * 2 * (D + T))
         per_blk = 4 * G * T * D + 2 * G * D + 3 * G * T
-    nbytes = live * blk + toks * 2 * D * 2 + 2 * B * HKV * G * D * 4 + 2 * B * 4
+    nbytes = blocks + toks * 2 * D * 2 + 2 * B * HKV * G * D * 4 + 2 * B * 4
     if paged:
         nbytes += B * NB * 4
     flops = live * per_blk + toks * (4 * G * D + G)
@@ -188,6 +232,32 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
+def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None) -> None:
+    """The same random blocks stored packed and huffman hold the same codes
+    and scales, so the Fetch kernel's outputs must be bit-identical (dense,
+    or paged on the same page map when ``holes`` is given)."""
+    import torch
+    from repro_torch.kernels import fused_kv_attn
+
+    out = {}
+    for layout in ("packed", "huffman"):
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=seed)
+        if holes is not None:
+            c = make_paged(c, nb_valid, seed=seed, holes=holes)
+        args, kw = fetch_args(spec, c)
+        out[layout] = (fused_kv_attn.fused_cache_attention(q, *args, **kw),
+                       [getattr(c, f) for f in ("k_min", "k_step", "v_min", "v_step")])
+    torch.cuda.synchronize()
+    for a, b in zip(out["packed"][1], out["huffman"][1]):
+        if not torch.equal(bf16_bits(a), bf16_bits(b)):
+            raise AssertionError("packed and huffman scales differ on the same blocks")
+    if not torch.equal(out["packed"][0], out["huffman"][0]):
+        d = float((out["packed"][0] - out["huffman"][0]).abs().max())
+        raise AssertionError(f"huffman Fetch differs from packed on the same blocks: {d}")
+    mode = "paged" if holes is not None else "dense"
+    print(f"  {mode} fetch on the same blocks: huffman output bit-identical to packed")
+
+
 def phase_kernels(report: dict) -> None:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -195,7 +265,7 @@ def phase_kernels(report: dict) -> None:
 
     nb_valid, buf_len = [64, 37, 1, 0], [0, 63, 17, 5]
     fetch_err = 0.0
-    for i, layout in enumerate(("packed", "kivi", "raw")):
+    for i, layout in enumerate(("packed", "kivi", "raw", "huffman")):
         spec, c, q = make_cache(layout, nb_valid, buf_len, seed=i)
         args, kw = fetch_args(spec, c)
         got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
@@ -204,8 +274,12 @@ def phase_kernels(report: dict) -> None:
         err = float((got - want).abs().max())
         if not (err <= FETCH_ATOL and torch.isfinite(got).all()):
             raise AssertionError(f"Fetch kernel vs plain ({layout}): max |err| {err}")
-        print(f"  fetch {layout:6s} max|kernel-plain| = {err:.3e} (tol {FETCH_ATOL})")
-        fetch_err = max(fetch_err, err)
+        print(f"  fetch {layout:7s} max|kernel-plain| = {err:.3e} (tol {FETCH_ATOL})")
+        if layout == "huffman":
+            report["fetch_huffman_err"] = err
+        else:
+            fetch_err = max(fetch_err, err)
+    same_blocks_identical(nb_valid, buf_len, seed=9)
 
     store_err = 0.0
     for layout, dt, n in (("packed", torch.bfloat16, 1), ("kivi", torch.bfloat16, 1),
@@ -252,23 +326,28 @@ def phase_paged_kernels(report: dict) -> None:
     buf_len = [0, 63, 17, 5, 1, 33, 60, 2]
     holes = {(2, 1), (0, 39)}  # unassigned entries below nb_valid
     err = 0.0
-    for i, layout in enumerate(("packed", "kivi", "raw")):
+    for i, layout in enumerate(("packed", "kivi", "raw", "huffman")):
         spec, c, q = make_cache(layout, nb_valid, buf_len, seed=30 + i)
         pc = make_paged(c, nb_valid, seed=i, holes=holes)
         assert pc.k_store.shape[:3] == (1, HKV, P_ARENA)
         args, kw = fetch_args(spec, pc)
-        n0 = runtime.launches["fused_kv_attn_paged"]
+        key = "fused_kv_attn_huffman_paged" if layout == "huffman" else "fused_kv_attn_paged"
+        n0 = runtime.launches[key]
         got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
-        if runtime.launches["fused_kv_attn_paged"] != n0 + 1:
-            raise AssertionError("the paged Fetch did not count a paged launch")
+        if runtime.launches[key] != n0 + 1:
+            raise AssertionError(f"the paged Fetch did not count a launch as {key}")
         want = fused_kv_attn.plain(q, *args, **kw)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         if not (e <= FETCH_ATOL and torch.isfinite(got).all()):
             raise AssertionError(f"paged Fetch kernel vs plain ({layout}): max |err| {e}")
-        print(f"  paged fetch {layout:6s} max|kernel-plain| = {e:.3e} (tol {FETCH_ATOL})")
-        err = max(err, e)
+        print(f"  paged fetch {layout:7s} max|kernel-plain| = {e:.3e} (tol {FETCH_ATOL})")
+        if layout == "huffman":
+            report["fetch_huffman_paged_err"] = e
+        else:
+            err = max(err, e)
     report["fetch_paged_err"] = err
+    same_blocks_identical(nb_valid, buf_len, seed=19, holes=holes)
 
     names = pool.STORE_FIELDS
     for layout, dt in (("packed", torch.bfloat16), ("kivi", torch.bfloat16),
@@ -306,6 +385,97 @@ def phase_paged_kernels(report: dict) -> None:
                 raise AssertionError(f"arena Store wrote a page no flush was for ({f})")
         print(f"  arena store {layout:6s} {str(dt):14s}: {len(written)} pages written "
               f"bit-exact, {len(keep)} untouched")
+
+
+NBLK_H = HKV * NB  # phase 11: every block of one layer's K store
+
+
+def huffman_inputs(seed: int = 60) -> list[dict]:
+    """Real huffman K slots at Yi-6B width: random K blocks, quantized as the
+    layout quantizes them, encoded (a) with the layout's default K book and
+    (b) with a book fitted to the squared histogram of the same codes
+    (sharper, so its longest code exceeds 8 bits and needs 2 LUT probes)."""
+    import torch
+    from repro_torch.core import huffman, layouts
+    from repro_torch.core import cache as C
+
+    spec = C.CacheSpec(layout="huffman", block_size=T, max_seq=NB * T)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    k = torch.randn((NBLK_H, T, D), generator=g, device="cuda").to(torch.bfloat16)
+    codes, kmn, kst = layouts.quant_block_minmax(k.float(), spec.rel_scale_k, spec.bits_k,
+                                                 (-2,), False)
+    hist = huffman.histogram(codes).cpu().numpy().astype(np.float64)
+    sharp = np.where(hist > 0, np.maximum(1.0, 1e12 * (hist / hist.max()) ** 2), 0)
+    books = (("default", spec.impl.book_k(spec)),
+             ("skewed", huffman.build_codebook(sharp.astype(np.int64))))
+    q = torch.randn((D,), generator=g, device="cuda")
+    out = []
+    for name, book in books:
+        slots = spec.impl._encode(spec, codes, book)  # [NBLK, hdr + payload]
+        hdr = spec.impl._slot_words(spec, D, book)[0]
+        nbits = layouts.unpack_u16_pairs(slots[:, :hdr], T)
+        out.append(dict(name=name, book=book, codes=codes, slots=slots, hdr=hdr,
+                        payload=slots[:, hdr:].contiguous(), nbits=nbits,
+                        tables=book.as_device_tables("cuda"), lut=book.device_lut("cuda"),
+                        max_bits=int(nbits.max()), kmn=kmn.to(torch.bfloat16).float(),
+                        kst=kst.to(torch.bfloat16).float(), q=q, scale=1.0 / np.sqrt(D)))
+    return out
+
+
+def phase_huffman_kernels(report: dict) -> None:
+    """Phase 11: the huffman decode kernels at Yi-6B width, each driven once
+    per codebook through its entry point (counts zeroed just before, read
+    just after), then held against its plain version."""
+    import torch
+    from repro_torch.kernels import huffman_decode, ops, runtime
+
+    inputs = huffman_inputs()
+    runtime.reset_launches()
+    outs = []
+    for x in inputs:
+        outs.append((
+            ops.huffman_decode(x["payload"], x["nbits"], *x["tables"], D, x["max_bits"]),
+            ops.huffman_attn_scores(x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"],
+                                    x["q"], x["max_bits"], scale=x["scale"]),
+            huffman_decode.huffman_lut_decode(x["slots"], x["lut"], block_size=T, head_dim=D,
+                                              hdr_words=x["hdr"],
+                                              probes=x["book"].decode_probes)))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in runtime.launches.items() if v}
+    want = {"huffman_decode": 2, "huffman_attn_scores": 2, "huffman_lut_decode": 2}
+    print(f"  launches of the driven calls: {launches}")
+    if launches != want:
+        raise AssertionError(f"huffman kernel launches {launches}, expected {want}")
+    err = 0.0
+    for x, (codes, scores, lut_codes) in zip(inputs, outs):
+        book = x["book"]
+        plain = huffman_decode.huffman_decode_plain(x["payload"], x["nbits"], *x["tables"], D,
+                                                    x["max_bits"])
+        sc_plain = huffman_decode.huffman_attn_scores_plain(
+            x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"], x["q"], x["max_bits"],
+            scale=x["scale"])
+        lut_plain = huffman_decode.huffman_lut_decode_plain(
+            x["slots"], x["lut"], block_size=T, head_dim=D, hdr_words=x["hdr"],
+            probes=book.decode_probes)
+        torch.cuda.synchronize()
+        e = float((scores - sc_plain).abs().max())
+        checks = {"walk codes == plain": torch.equal(codes, plain),
+                  "walk codes == quantized codes": torch.equal(codes, x["codes"]),
+                  f"scores within {SCORES_ATOL}": e <= SCORES_ATOL
+                  and bool(torch.isfinite(scores).all()),
+                  "LUT slot codes == plain": torch.equal(lut_codes, lut_plain),
+                  "LUT slot codes == quantized codes": torch.equal(lut_codes, x["codes"])}
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"huffman kernels, {x['name']} book: failed {bad} "
+                                 f"(scores max |err| {e})")
+        print(f"  {x['name']:7s} book: max code length {int(book.lengths.max())} bits, "
+              f"{book.decode_probes} probe(s), {book.n_nodes} nodes; payload bits a block "
+              f"{int(x['nbits'].sum(-1).float().mean())} (mean); walk and LUT codes bit-exact "
+              f"and lossless, scores max|kernel-plain| = {e:.3e} (tol {SCORES_ATOL})")
+        err = max(err, e)
+    report["huffman_kernels"] = dict(launches=launches, scores_err=err)
 
 
 def yi_6b():
@@ -372,11 +542,12 @@ def phase_serve(report: dict, cfg, params) -> None:
     for name in ("fused_kv_attn", "pack_encode"):
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} never launched on the main path")
-    if launches["fused_kv_attn_paged"]:
-        raise AssertionError("the dense path launched the paged Fetch")
+    others = {k: v for k, v in launches.items() if v and k not in ("fused_kv_attn", "pack_encode")}
+    if others:
+        raise AssertionError(f"the dense packed path launched {others}")
     report.update(launches=launches, tok_s=n_tok / wall, wall_s=wall,
                   ttft_s=[r.ttft_s for r in results], decode_steps=st["decode_steps"],
-                  chunks=st["prefill"]["chunks"])
+                  chunks=st["prefill"]["chunks"], tokens=[r.tokens for r in results])
 
     # Launches per decode step, measured on one more step of the same state.
     runtime.reset_launches()
@@ -458,7 +629,7 @@ def _kernel_groups(prof) -> tuple[dict, list]:
     torch.profiler run."""
     from torch.autograd import DeviceType
 
-    groups: dict[str, float] = {}
+    groups: dict[str, list] = {}
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -471,9 +642,12 @@ def _kernel_groups(prof) -> tuple[dict, list]:
         n = e.key.lower()
         g = ("fetch kernel" if "fused_kv_attn" in n else
              "store kernel" if "pack_encode" in n else
+             "huffman LUT decode kernel" if "huffman_lut_decode" in n else
              "matmul (cuBLAS)" if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass"))
              else "other PyTorch kernels")
-        groups[g] = groups.get(g, 0.0) + us / 1e3
+        acc = groups.setdefault(g, [0.0, 0])
+        acc[0] += us / 1e3
+        acc[1] += e.count
         kernels.append((us / 1e3, e.count, e.key[:90]))
     return groups, sorted(kernels, reverse=True)[:5]
 
@@ -495,11 +669,11 @@ def _profiled(fn) -> tuple[float, dict, list]:
 
 
 def _print_profile(what: str, wall_ms: float, groups: dict, top: list) -> None:
-    busy = sum(groups.values())
+    busy = sum(ms for ms, _ in groups.values())
     print(f"  {what}: wall {wall_ms:.2f} ms (unprofiled), device busy {busy:.2f} ms, "
           f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"    {g:22s} {ms:9.3f} ms  {ms / busy:6.1%} of device time")
+    for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {g:26s} {ms:9.3f} ms  {ms / busy:6.1%} of device time, {n:6d} launches")
     for ms, n, name in top:
         print(f"      {ms:8.3f} ms in {n:4d} launches: {name}")
 
@@ -562,38 +736,41 @@ def _chunk_profile(cfg, params, server, prompt) -> None:
         pos[0] += T
 
     mode = "paged" if server.paged else "dense"
-    _print_profile(f"{mode} prefill chunk (64 tokens at 512, 576)", *_profiled(chunk))
+    _print_profile(f"{cfg.cache_layout} {mode} prefill chunk (64 tokens at 512, 576)",
+                   *_profiled(chunk))
 
 
-def _paged_run(cfg, params, prompts, scfg, profile: bool = False) -> dict:
-    """Serve the paged phase's requests through one server, stepping by
-    hand: the launch counts of every pure decode step, the peak number of
-    live rows, and (``profile``) one decode step with every row live and,
-    after the run, one prefill chunk."""
+def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = False) -> dict:
+    """Serve ``prompts`` through one server, stepping by hand: the launch
+    counts of every pure decode step (the kernels that launched, and how
+    often), the peak number of live rows, and (``profile``) one decode step
+    with every row live and, after the run, one prefill chunk."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.serve.scheduler import Request, Server
 
     server = Server(cfg, params, scfg)
-    handles = [server.submit(Request(prompt=p, max_new_tokens=PAGED_NEW)) for p in prompts]
+    handles = [server.submit(Request(prompt=p, max_new_tokens=new_tokens)) for p in prompts]
+    rows = len(prompts)
     torch.cuda.synchronize()
     runtime.reset_launches()
     peak, per_step, wall, out = 0, set(), 0.0, {}
     while True:
         st0, l0 = server.stats(), dict(runtime.launches)
-        if (profile and "profile" not in out and server.active == PB
+        if (profile and "profile" not in out and server.active == rows
                 and not server.prefilling and not server.pending):
             if server.paged:
                 live = [r for r, h in enumerate(server._slots) if h is not None]
                 tokens = int(sum(server._pos[r] for r in live))
                 pool = server.pool
                 out["kv_b_per_token"] = pool.live_pages * pool.bytes_per_page / tokens
-                print(f"  all {PB} rows live: {pool.live_pages} pages x {pool.bytes_per_page} "
+                print(f"  all {rows} rows live: {pool.live_pages} pages x {pool.bytes_per_page} "
                       f"B over {tokens} cached tokens = {out['kv_b_per_token']:.0f} B a token "
                       f"over {cfg.n_layers} layers")
             out["profile"] = _profiled(server.step)
             mode = "paged" if server.paged else "dense"
-            _print_profile(f"{mode} decode step ({PB} rows)", *out["profile"])
+            _print_profile(f"{cfg.cache_layout} {mode} decode step ({rows} rows)",
+                           *out["profile"])
             continue
         t0 = time.monotonic()
         more = server.step()
@@ -601,7 +778,8 @@ def _paged_run(cfg, params, prompts, scfg, profile: bool = False) -> dict:
         st1 = server.stats()
         if (st1["decode_steps"] == st0["decode_steps"] + 1
                 and st1["prefill"]["chunks"] == st0["prefill"]["chunks"]):
-            per_step.add(tuple(sorted((k, v - l0[k]) for k, v in runtime.launches.items())))
+            per_step.add(tuple(sorted((k, v - l0[k]) for k, v in runtime.launches.items()
+                                      if v - l0[k])))
         peak = max(peak, server.active)
         if not more:
             break
@@ -609,7 +787,8 @@ def _paged_run(cfg, params, prompts, scfg, profile: bool = False) -> dict:
     st = server.stats()
     out.update(tokens=[h.result().tokens for h in handles], launches=dict(runtime.launches),
                per_step=per_step, peak=peak, wall=wall, stats=st,
-               ttft=[h.result().ttft_s for h in handles])
+               ttft=[h.result().ttft_s for h in handles],
+               kv_bytes=server.memory_report()["kv_bytes"])
     n_tok = sum(len(t) for t in out["tokens"])
     out["tok_s"] = n_tok / wall
     print(f"  served {n_tok} tokens in {wall:.2f} s of steps: {n_tok / wall:.1f} tok/s, "
@@ -625,8 +804,8 @@ def _paged_run(cfg, params, prompts, scfg, profile: bool = False) -> dict:
     print(f"  launches: {out['launches']}; per pure decode step: "
           f"{[dict(x) for x in sorted(per_step)]}")
     for toks in out["tokens"]:
-        if (toks.shape != (PAGED_NEW,) or toks.min() < 0 or toks.max() >= cfg.vocab_size):
-            raise AssertionError(f"bad paged output: {toks}")
+        if (toks.shape != (new_tokens,) or toks.min() < 0 or toks.max() >= cfg.vocab_size):
+            raise AssertionError(f"bad output: {toks}")
     if profile:
         if "profile" not in out:
             raise AssertionError("no step had every row live to profile")
@@ -652,23 +831,23 @@ def phase_paged_serve(report: dict, cfg, params) -> None:
     print(f"  one page is {page_b} B across {cfg.n_layers} layers ({page_b / 2**20:.3f} MiB)")
 
     print(f"  (a) ample pool: two dense rows' bytes ({2 * NB} pages)", flush=True)
-    a = _paged_run(cfg, params, prompts, ServerConfig(
-        cache_mode="paged", pool_hbm_bytes=2 * NB * page_b, **base), profile=True)
+    a = _serve_run(cfg, params, prompts, ServerConfig(
+        cache_mode="paged", pool_hbm_bytes=2 * NB * page_b, **base), PAGED_NEW, profile=True)
     if a["peak"] != PB:
         raise AssertionError(f"only {a['peak']} of {PB} requests decoded at once")
     n_layers = cfg.n_layers
-    want = {(("fused_kv_attn", 0), ("fused_kv_attn_paged", n_layers), ("pack_encode", n_layers))}
+    want = {(("fused_kv_attn_paged", n_layers), ("pack_encode", n_layers))}
     if a["per_step"] != want:
         raise AssertionError(f"paged decode step launches {a['per_step']}, expected {want}")
 
     print(f"  (b) tight pool: {TIGHT_PAGES} pages", flush=True)
-    b = _paged_run(cfg, params, prompts, ServerConfig(
-        cache_mode="paged", pool_hbm_bytes=TIGHT_PAGES * page_b, **base))
+    b = _serve_run(cfg, params, prompts, ServerConfig(
+        cache_mode="paged", pool_hbm_bytes=TIGHT_PAGES * page_b, **base), PAGED_NEW)
     if b["stats"]["preemptions"] < 1:
         raise AssertionError("the tight pool preempted nothing")
 
     print("  (c) dense, 8 slots", flush=True)
-    c = _paged_run(cfg, params, prompts, ServerConfig(cache_mode="dense", **base),
+    c = _serve_run(cfg, params, prompts, ServerConfig(cache_mode="dense", **base), PAGED_NEW,
                    profile=True)
     for name, run in (("tight", b), ("dense", c)):
         same = sum(int((x == y).all()) for x, y in zip(a["tokens"], run["tokens"]))
@@ -677,7 +856,68 @@ def phase_paged_serve(report: dict, cfg, params) -> None:
             raise AssertionError(f"paged ample vs {name}: tokens differ")
     report["paged"] = dict(launches=a["launches"], tok_s=a["tok_s"], per_step=n_layers,
                            kv_b_per_token=a["kv_b_per_token"],
-                           preemptions=b["stats"]["preemptions"])
+                           preemptions=b["stats"]["preemptions"], tokens=a["tokens"],
+                           pool_bytes=2 * NB * page_b)
+
+
+def phase_huffman_serve(report: dict, cfg, params) -> None:
+    """Phase 12: full-width Yi-6B with huffman caches, dense on phase 5's
+    requests and paged on phase 9(a)'s; tokens equal the packed runs'."""
+    import dataclasses
+
+    from repro_torch.core import pool
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ServerConfig
+
+    hcfg = dataclasses.replace(cfg, cache_layout="huffman")
+    n_layers = cfg.n_layers
+    specs = M.cache_specs(hcfg, 4096)
+    page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim) for s in specs)
+    spec = specs[0]
+    tile = spec.impl.tile_decode(spec, cfg.resolved_head_dim)
+    print(f"  cache: huffman, block {spec.block_size}; K book {int((tile.book_k.lengths > 0).sum())} codes of "
+          f"{int(tile.book_k.lengths[tile.book_k.lengths > 0].min())} to "
+          f"{int(tile.book_k.lengths.max())} bits, V book "
+          f"{int((tile.book_v.lengths > 0).sum())} codes; slots {tile.k_tile[0]} K / "
+          f"{tile.v_tile[0]} V words; one page {page_b} B across {n_layers} layers")
+    out = {}
+    rng = np.random.default_rng(0)
+    dense_prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32) for L in PROMPT_LENS]
+    rng = np.random.default_rng(1)
+    paged_prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32) for L in PAGED_LENS]
+    pool_bytes = report["paged"]["pool_bytes"]
+    for mode, prompts, scfg, new, want_tokens in (
+            ("dense", dense_prompts, ServerConfig(max_slots=B, max_seq=4096,
+                                                  attn_backend="fused"),
+             NEW_TOKENS, report["tokens"]),
+            ("paged", paged_prompts, ServerConfig(max_slots=PB, max_seq=4096,
+                                                  attn_backend="fused", cache_mode="paged",
+                                                  pool_hbm_bytes=pool_bytes),
+             PAGED_NEW, report["paged"]["tokens"])):
+        print(f"  ({'a' if mode == 'dense' else 'b'}) {mode}: {len(prompts)} requests"
+              + (f", pool of {pool_bytes} B = {pool_bytes // page_b} huffman pages"
+                 if mode == "paged" else ""), flush=True)
+        r = _serve_run(hcfg, params, prompts, scfg, new, profile=True)
+        key = "fused_kv_attn_huffman" + ("_paged" if mode == "paged" else "")
+        if r["per_step"] != {((key, n_layers),)}:
+            raise AssertionError(f"huffman {mode} decode step launches {r['per_step']}, "
+                                 f"expected {key} x {n_layers} and nothing else")
+        if r["launches"]["huffman_lut_decode"] < 1:
+            raise AssertionError(f"huffman {mode} chunks never ran the slot LUT decode")
+        same = sum(int((x == y).all()) for x, y in zip(want_tokens, r["tokens"]))
+        n_same = sum(int((x == y).sum()) for x, y in zip(want_tokens, r["tokens"]))
+        print(f"  huffman vs packed ({mode}): {n_same}/{len(prompts) * new} tokens, "
+              f"{same}/{len(prompts)} requests identical")
+        if same != len(prompts):
+            raise AssertionError(f"huffman {mode} tokens differ from packed")
+        if mode == "dense":
+            kv = r["kv_bytes"]
+            print(f"  KV cache of the live state: {kv / 2**20:.1f} MiB for {B} x 4096 token "
+                  f"slots = {kv / (B * 4096):.0f} B a token slot over {n_layers} layers")
+        out[mode] = r
+    report["huffman"] = dict(
+        launches_dense=out["dense"]["launches"], launches_paged=out["paged"]["launches"],
+        per_step=n_layers, page_b=page_b)
 
 
 def phase_times(report: dict) -> list[dict]:
@@ -733,6 +973,7 @@ def phase_times(report: dict) -> list[dict]:
           f"{bl_p}): kernel {p_ms:.4f} ms, dense kernel on the same blocks {d_ms:.4f} ms, "
           f"plain {p_plain:.4f} ms, bound {p_bound:.5f} ms ({p_by}), "
           f"{report['paged']['per_step']} launches/decode step")
+    h = huffman_times(report)
     return [
         {"name": "fused_kv_attn", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_kv_attn.cu",
@@ -755,7 +996,125 @@ def phase_times(report: dict) -> list[dict]:
          "launches": report["paged"]["launches"]["fused_kv_attn_paged"],
          "max_abs_err": report["fetch_paged_err"], "ms": p_ms, "plain_ms": p_plain,
          "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
+        *h,
     ]
+
+
+def huffman_times(report: dict) -> list[dict]:
+    """Phase 10, huffman part: the huffman Fetch (dense and paged, at the
+    same lengths as the packed one), the three huffman decode kernels at
+    phase 11's shapes, and the plain huffman Store of a decode step."""
+    import torch
+    from repro_torch.kernels import fused_kv_attn, huffman_decode, ops
+
+    hr = report["huffman"]
+    nb_valid = [(L + NEW_TOKENS - 1) // T for L in PROMPT_LENS]
+    buf_len = [(L + NEW_TOKENS - 1) % T for L in PROMPT_LENS]
+    spec, c, q = make_cache("huffman", nb_valid, buf_len, seed=21)
+    args, kw = fetch_args(spec, c)
+    f_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *args, **kw))
+    f_plain = timed(lambda: fused_kv_attn.plain(q, *args, **kw), iters=5, warmup=1)
+    f_bound, f_by = fetch_bound_ms(spec, nb_valid, buf_len, cache=c)
+    print(f"  fetch (huffman, nb_valid {nb_valid}, buf_len {buf_len}): kernel {f_ms:.4f} ms, "
+          f"plain {f_plain:.4f} ms, bound {f_bound:.5f} ms ({f_by}), {hr['per_step']} "
+          f"launches/decode step")
+
+    # The plain huffman Store of one layer in a decode step (B rows, drop
+    # sentinel or every row flushing): the kernels it launches and their
+    # device time (torch.profiler), and its wall a call (host clock over 10
+    # calls ending in a synchronize; the host enqueue sets it).
+    kb, vb = c.k_buf[:, :, None], c.v_buf[:, :, None]
+    flush = torch.arange(B, dtype=torch.int32, device="cuda")[:, None] + 10
+    drop = torch.full((B, 1), NB, dtype=torch.int32, device="cuda")
+    for name, slots in (("none flushing", drop), ("every row flushing", flush)):
+        fn = lambda: spec.impl.write_blocks(spec, c, slots, kb, vb)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = 100 * (time.monotonic() - t0)
+        _, groups, _ = _profiled(fn)
+        dev_ms = sum(ms for ms, _ in groups.values())
+        n = sum(k for _, k in groups.values())
+        print(f"  huffman store (plain PyTorch, one layer of a decode step, B={B}, {name}): "
+              f"{n} kernel launches, {dev_ms:.4f} ms of kernel time, {host_ms:.3f} ms of wall "
+              f"a call")
+
+    nb_p = [(L + PAGED_NEW - 1) // T for L in PAGED_LENS]
+    bl_p = [(L + PAGED_NEW - 1) % T for L in PAGED_LENS]
+    spec, c, q = make_cache("huffman", nb_p, bl_p, seed=22)
+    pc = make_paged(c, nb_p, seed=3)
+    pargs, kw = fetch_args(spec, pc)
+    dargs, _ = fetch_args(spec, c)
+    p_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *pargs, **kw))
+    d_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *dargs, **kw))
+    p_plain = timed(lambda: fused_kv_attn.plain(q, *pargs, **kw), iters=5, warmup=1)
+    p_bound, p_by = fetch_bound_ms(spec, nb_p, bl_p, paged=True, cache=c)
+    print(f"  paged fetch (huffman, B={PB}, nb_valid {nb_p}): kernel {p_ms:.4f} ms, dense "
+          f"kernel on the same blocks {d_ms:.4f} ms, plain {p_plain:.4f} ms, bound "
+          f"{p_bound:.5f} ms ({p_by}), {hr['per_step']} launches/decode step")
+    entries = [
+        {"name": "fused_kv_attn_huffman", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_kv_attn.cu",
+         "replaces": "src/repro/core/layouts.py:822",
+         "launches": hr["launches_dense"]["fused_kv_attn_huffman"],
+         "max_abs_err": report["fetch_huffman_err"], "ms": f_ms, "plain_ms": f_plain,
+         "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
+        {"name": "fused_kv_attn_huffman_paged", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_kv_attn.cu",
+         "replaces": "src/repro/core/layouts.py:822",
+         "launches": hr["launches_paged"]["fused_kv_attn_huffman_paged"],
+         "max_abs_err": report["fetch_huffman_paged_err"], "ms": p_ms, "plain_ms": p_plain,
+         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
+    ]
+
+    # The decode kernels at phase 11's shapes, default K book.  Bytes: the
+    # payload words the streams fill, the bit counts, tables or LUT once,
+    # and the output; operations: one a decoded bit (walk) or a probe (LUT),
+    # plus the scores' dequant and product (4 a code), a lower bound.
+    x = huffman_inputs()[0]
+    nblk, S = x["nbits"].shape
+    bits = x["nbits"].sum(-1)
+    pay_bytes = 4 * int(((bits + 31) // 32).sum())
+    tab_bytes = 4 * 4 * x["tables"][1].numel()
+    steps = int(bits.sum())
+    d_args = (x["payload"], x["nbits"], *x["tables"], D, x["max_bits"])
+    s_args = (x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"], x["q"], x["max_bits"])
+    l_args = (x["slots"], x["lut"])
+    l_kw = dict(block_size=T, head_dim=D, hdr_words=x["hdr"], probes=x["book"].decode_probes)
+    rows = [
+        ("huffman_decode", "src/repro/kernels/huffman_decode.py:56",
+         lambda: ops.huffman_decode(*d_args), lambda: huffman_decode.huffman_decode_plain(*d_args),
+         bound(pay_bytes + 4 * nblk * S + tab_bytes + nblk * S * D, steps),
+         report["huffman_kernels"]["launches"]["huffman_decode"], 0.0),
+        ("huffman_attn_scores", "src/repro/kernels/huffman_decode.py:65",
+         lambda: ops.huffman_attn_scores(*s_args, scale=x["scale"]),
+         lambda: huffman_decode.huffman_attn_scores_plain(*s_args, scale=x["scale"]),
+         bound(pay_bytes + 4 * nblk * S + tab_bytes + 2 * 4 * nblk * D + 4 * D + 4 * nblk * S,
+               steps + 4 * nblk * S * D),
+         report["huffman_kernels"]["launches"]["huffman_attn_scores"],
+         report["huffman_kernels"]["scores_err"]),
+        ("huffman_lut_decode", None,
+         lambda: huffman_decode.huffman_lut_decode(*l_args, **l_kw),
+         lambda: huffman_decode.huffman_lut_decode_plain(*l_args, **l_kw),
+         bound(pay_bytes + 4 * x["hdr"] * nblk + 4 * x["lut"].numel() + nblk * S * D,
+               nblk * S * D * x["book"].decode_probes),
+         hr["launches_dense"]["huffman_lut_decode"] + hr["launches_paged"]["huffman_lut_decode"],
+         0.0),
+    ]
+    for name, replaces, kern, plain, (b_ms, b_by), launches, err in rows:
+        k_ms = timed(kern)
+        pl_ms = timed(plain, iters=3, warmup=1)
+        print(f"  {name} (NBLK={nblk}, S={S}, L={D}, default K book): kernel {k_ms:.4f} ms, "
+              f"plain {pl_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), {launches} launches on "
+              f"its path")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/csrc/huffman_decode.cu", "replaces": replaces,
+                        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": pl_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return entries
 
 
 def main() -> int:
@@ -781,6 +1140,8 @@ def main() -> int:
     phase_kernels(report)
     print("[4] paged kernels vs plain at Yi-6B shapes", flush=True)
     phase_paged_kernels(report)
+    print("[11] huffman decode kernels at Yi-6B width", flush=True)
+    phase_huffman_kernels(report)
     print("[5] serve full-width Yi-6B, dense", flush=True)
     cfg, params = yi_6b()
     phase_serve(report, cfg, params)
@@ -788,6 +1149,8 @@ def main() -> int:
     phase_reference()
     print("[9] serve full-width Yi-6B, paged", flush=True)
     phase_paged_serve(report, cfg, params)
+    print("[12] serve full-width Yi-6B, huffman", flush=True)
+    phase_huffman_serve(report, cfg, params)
     del params
     torch.cuda.empty_cache()
     print("[10] kernel times", flush=True)

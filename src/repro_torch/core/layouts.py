@@ -14,9 +14,10 @@ registry.  A layout owns:
 * ``tile_decode``  — the ``FusedTileSpec`` the Fetch kernel
                      (``kernels.fused_kv_attn``) and its plain version use.
 
-Built-in layouts here: ``raw`` (bf16, exact), ``packed`` (error-bounded
-quantizer + no-straddle packing) and ``kivi`` (fixed-bit baseline).  The
-reference's ``huffman`` layout belongs to a later slice of the port.
+Built-in layouts: ``raw`` (bf16, exact), ``packed`` (error-bounded
+quantizer + no-straddle packing), ``kivi`` (fixed-bit baseline) and
+``huffman`` (the paper's maximal-ratio path: per-block Huffman streams with
+u16 per-stream bit counts, decoded by the chunked direct-lookup decoder).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core import bitpack
+from repro_torch.core import bitpack, huffman
 
 RAW_BITS_PER_VALUE = 16  # KV caches are bf16 at rest
 
@@ -63,10 +64,15 @@ class FusedTileSpec:
     counterpart of the reference's ``FusedTileSpec``, whose decode callables
     become a description the CUDA kernel reads).
 
-    k_tile / v_tile : one block's store tile shape, ``(W,)`` packed words or
+    kind            : ``raw`` (bf16 passthrough), ``packed`` (no-straddle
+        words, packed and kivi) or ``huffman`` (u16 header + Huffman streams).
+    k_tile / v_tile : one block's store tile shape, ``(W,)`` words or
         ``(T, D)`` raw values.
-    has_scales      : packed tiles carry (min, step) units; raw tiles do not.
+    has_scales      : quantized tiles carry (min, step) units; raw tiles do not.
     bits_k / bits_v : code widths of packed tiles (0 for raw).
+    hdr_k / hdr_v, probes_k / probes_v, book_k / book_v : huffman tiles' header
+        words, LUT probes a symbol and codebooks (their flat LUTs are what the
+        kernel reads; the books stay out of ``==`` and ``hash``).
     ``decode_k`` / ``decode_v`` are the plain versions of the kernel's tile
     decode, batched over any leading dims: tiles ``[..., *tile]`` and units
     ``[..., D]`` (K) / ``[..., T]`` (V) -> ``[..., T, D]`` float32.
@@ -79,25 +85,41 @@ class FusedTileSpec:
     head_dim: int
     bits_k: int = 0
     bits_v: int = 0
+    kind: str = "packed"
+    hdr_k: int = 0
+    hdr_v: int = 0
+    probes_k: int = 0
+    probes_v: int = 0
+    book_k: huffman.CodeBook | None = dataclasses.field(default=None, compare=False, repr=False)
+    book_v: huffman.CodeBook | None = dataclasses.field(default=None, compare=False, repr=False)
 
-    def _codes(self, tile, bits):
+    def luts(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The huffman books' flat LUTs on ``device`` (one copy per device)."""
+        return self.book_k.device_lut(device), self.book_v.device_lut(device)
+
+    def _codes(self, tile, key: bool):
         T, D = self.block_size, self.head_dim
-        return bitpack.unpack_nostraddle_tile(tile, bits, T * D).reshape(
+        if self.kind == "huffman":
+            hdr, book, probes = ((self.hdr_k, self.book_k, self.probes_k) if key
+                                 else (self.hdr_v, self.book_v, self.probes_v))
+            return huffman.decode_block_lut_torch(
+                tile[..., hdr:], unpack_u16_pairs(tile[..., :hdr], T),
+                book.device_lut(tile.device), D, probes).to(torch.float32)
+        return bitpack.unpack_nostraddle_tile(
+            tile, self.bits_k if key else self.bits_v, T * D).reshape(
             *tile.shape[:-1], T, D).to(torch.float32)
 
     def decode_k(self, tile, mn=None, st=None):
         if not self.has_scales:
             return tile.to(torch.float32)
-        codes = self._codes(tile, self.bits_k)
         return (mn.to(torch.float32)[..., None, :]
-                + codes * st.to(torch.float32)[..., None, :])
+                + self._codes(tile, True) * st.to(torch.float32)[..., None, :])
 
     def decode_v(self, tile, mn=None, st=None):
         if not self.has_scales:
             return tile.to(torch.float32)
-        codes = self._codes(tile, self.bits_v)
         return (mn.to(torch.float32)[..., :, None]
-                + codes * st.to(torch.float32)[..., :, None])
+                + self._codes(tile, False) * st.to(torch.float32)[..., :, None])
 
 
 def scatter_slots(store: torch.Tensor, slots: torch.Tensor,
@@ -244,7 +266,7 @@ class RawLayout(CacheLayout):
     def _tile_decode(self, spec, head_dim):
         shape = (spec.block_size, head_dim)
         return FusedTileSpec(k_tile=shape, v_tile=shape, has_scales=False,
-                             block_size=spec.block_size, head_dim=head_dim)
+                             block_size=spec.block_size, head_dim=head_dim, kind="raw")
 
 
 @register_layout("packed")
@@ -300,3 +322,137 @@ class KiviLayout(PackedLayout):
 
     def bits_v(self, spec) -> int:
         return spec.kivi_bits
+
+
+@functools.lru_cache(maxsize=64)
+def default_codebook(n_codes: int) -> huffman.CodeBook:
+    """Static prior codebook covering codes [0, n_codes): triangular, peaked
+    at the code range's center (the error-bounded quantizer's codes of
+    LLM-like data are bell-shaped, paper Fig. 3).  Covering the whole code
+    range keeps the layout lossless for any input."""
+    hist = np.zeros(huffman.N_SYMBOLS, np.int64)
+    c = np.arange(n_codes, dtype=np.float64)
+    center = (n_codes - 1) / 2.0
+    hist[:n_codes] = 1 + np.round(1000.0 * (n_codes - np.abs(c - center))).astype(np.int64)
+    return huffman.build_codebook(hist)
+
+
+def pack_u16_pairs(nbits: torch.Tensor) -> torch.Tensor:
+    """u16 per-stream bit counts [..., S] -> int32 header words [..., (S+1)//2]
+    (stream 2i in the low half of word i, stream 2i+1 in the high half)."""
+    nb = nbits.to(torch.int64) & 0xFFFF
+    if nb.shape[-1] % 2:
+        nb = torch.cat([nb, torch.zeros_like(nb[..., :1])], dim=-1)
+    return bitpack.to_int32_bits(nb[..., 0::2] | (nb[..., 1::2] << 16))
+
+
+def unpack_u16_pairs(hdr: torch.Tensor, S: int) -> torch.Tensor:
+    """int32 header words [..., Hw] -> the S bit counts [..., S] (int32)."""
+    v = hdr.to(torch.int64) & 0xFFFFFFFF
+    pairs = torch.stack([v & 0xFFFF, v >> 16], dim=-1)
+    return pairs.reshape(*hdr.shape[:-1], -1)[..., :S].to(torch.int32)
+
+
+@register_layout("huffman")
+class HuffmanLayout(PackedLayout):
+    """Huffman-coded blocks behind the same six-tensor cache contract.
+
+    Slot of one block (K and V alike): ``(T+1)//2`` header words holding the
+    T per-stream u16 bit counts (one stream per token, D codes each), then a
+    worst-case payload (``T*D*max_code_len`` bits under the static prior
+    codebook, plus a word).  The scales are the packed layout's, and the codes
+    are the packed layout's codes (same quantizer, lossless entropy coding),
+    so ``q.(mn + st*c)`` applies unchanged after the entropy decode.
+
+    The Store is plain PyTorch, as in the reference (quantize, then
+    ``encode_block_torch``, then ``scatter_slots``).  The Fetch kernel decodes
+    whole slots in shared memory with the chunked LUT (``tile_decode``); the
+    blockwise chunk path decodes a span of slots with the slot LUT decode
+    kernel (``kernels.huffman_decode.huffman_lut_decode``).
+    """
+
+    supports_fused = True
+
+    def _n_codes(self, spec, bits: int, rel_scale: float) -> int:
+        n = round(1.0 / rel_scale) + 1
+        return int(min(n, 2**bits, huffman.N_SYMBOLS))
+
+    def book_k(self, spec) -> huffman.CodeBook:
+        return default_codebook(self._n_codes(spec, spec.bits_k, spec.rel_scale_k))
+
+    def book_v(self, spec) -> huffman.CodeBook:
+        return default_codebook(self._n_codes(spec, spec.bits_v, spec.rel_scale_v))
+
+    def _slot_words(self, spec, head_dim: int, book: huffman.CodeBook) -> tuple[int, int]:
+        """(header_words, payload_words) of one block's slot."""
+        T = spec.block_size
+        hdr = (T + 1) // 2
+        payload = (T * head_dim * int(book.lengths.max()) + 31) // 32 + 1
+        return hdr, payload
+
+    def init_store(self, spec, batch, n_kv_heads, head_dim, dtype, device):
+        B, H, T, D, NB = batch, n_kv_heads, spec.block_size, head_dim, spec.store_blocks
+        wk = sum(self._slot_words(spec, D, self.book_k(spec)))
+        wv = sum(self._slot_words(spec, D, self.book_v(spec)))
+        z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
+        return (z(B, H, NB, wk, dt=torch.int32), z(B, H, NB, D), z(B, H, NB, D),
+                z(B, H, NB, wv, dt=torch.int32), z(B, H, NB, T), z(B, H, NB, T))
+
+    def _encode(self, spec, codes: torch.Tensor, book: huffman.CodeBook) -> torch.Tensor:
+        """codes u8 [..., T, D] -> slots int32 [..., hdr + payload]."""
+        _, pay_w = self._slot_words(spec, codes.shape[-1], book)
+        payload, nbits, _ = huffman.encode_block_torch(
+            codes, *book.encode_tables(codes.device), pay_w)
+        return torch.cat([pack_u16_pairs(nbits), payload], dim=-1)
+
+    def _decode(self, spec, store: torch.Tensor, head_dim: int,
+                book: huffman.CodeBook) -> torch.Tensor:
+        """slots int32 [B, H, C, W] -> codes u8 [B, H, C, T, D]: the slot LUT
+        decode kernel on the card, its plain version on the CPU."""
+        from repro_torch.kernels import huffman_decode  # late: kernels import core
+
+        B, H, C, W = store.shape
+        codes = huffman_decode.huffman_lut_decode(
+            store.reshape(B * H * C, W).contiguous(), book.device_lut(store.device),
+            block_size=spec.block_size, head_dim=head_dim,
+            hdr_words=self._slot_words(spec, head_dim, book)[0], probes=book.decode_probes)
+        return codes.reshape(B, H, C, spec.block_size, head_dim)
+
+    def write_blocks(self, spec, cache, slots, kb, vb) -> None:
+        kc, kmn, kst = quant_block_minmax(kb.to(torch.float32), spec.rel_scale_k,
+                                          spec.bits_k, (-2,), False)
+        vc, vmn, vst = quant_block_minmax(vb.to(torch.float32), spec.rel_scale_v,
+                                          spec.bits_v, (-1,), False)
+        bf = torch.bfloat16
+        for store, val in ((cache.k_store, self._encode(spec, kc, self.book_k(spec))),
+                           (cache.k_min, kmn.to(bf)), (cache.k_step, kst.to(bf)),
+                           (cache.v_store, self._encode(spec, vc, self.book_v(spec))),
+                           (cache.v_min, vmn.to(bf)), (cache.v_step, vst.to(bf))):
+            scatter_slots(store, slots, val)
+
+    def decode_span(self, spec, cache, start, count):
+        sl = slice(start, start + count)
+        D = cache.head_dim
+        kc = self._decode(spec, cache.k_store[:, :, sl], D, self.book_k(spec))
+        vc = self._decode(spec, cache.v_store[:, :, sl], D, self.book_v(spec))
+        return (kc.to(torch.float32), cache.k_min[:, :, sl], cache.k_step[:, :, sl],
+                vc.to(torch.float32), cache.v_min[:, :, sl], cache.v_step[:, :, sl])
+
+    def _tile_decode(self, spec, head_dim):
+        book_k, book_v = self.book_k(spec), self.book_v(spec)
+        hk, pk = self._slot_words(spec, head_dim, book_k)
+        hv, pv = self._slot_words(spec, head_dim, book_v)
+        return FusedTileSpec(k_tile=(hk + pk,), v_tile=(hv + pv,), has_scales=True,
+                             block_size=spec.block_size, head_dim=head_dim, kind="huffman",
+                             hdr_k=hk, hdr_v=hv, probes_k=book_k.decode_probes,
+                             probes_v=book_v.decode_probes, book_k=book_k, book_v=book_v)
+
+    def bytes_per_token(self, spec, n_kv_heads: int, head_dim: int) -> float:
+        """Allocated (worst-case slot) bytes a cached token and layer, scales
+        included."""
+        T = spec.block_size
+        wk = sum(self._slot_words(spec, head_dim, self.book_k(spec)))
+        wv = sum(self._slot_words(spec, head_dim, self.book_v(spec)))
+        payload = n_kv_heads * 4.0 * (wk + wv) / T
+        meta = n_kv_heads * (2 * head_dim * 2 * 2 / T + 2 * 2)
+        return payload + meta

@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_kv_attn.py:57
 // (`_kernel`, launched by `fused_cache_attention_pallas`), dense and paged
-// variants, for the raw passthrough tiles and the packed/kivi no-straddle
-// tiles.
+// variants, for the raw passthrough tiles, the packed/kivi no-straddle tiles
+// and the huffman tiles (see below).
 //
 // What bounds it on an H100: in float32 on the CUDA cores, operations.  Per
 // live block and KV head the kernel reads ~9.5 KB (the packed K and V words at
@@ -48,21 +48,42 @@
 // channel (mn[d] + c*st[d]), V per token (mn[t] + c*st[t]).  Scores and the
 // online softmax (m, l, acc) run in float32, then the raw tail buffer is folded
 // in, masked by buf_len[b], exactly as the TPU kernel's final grid step does.
+//
+// Huffman tiles (kind 2; the TPU kernel's huffman tile decode,
+// src/repro/core/layouts.py:822-848 `HuffmanLayout._tile_decode`, with the
+// LUTs as aux operands, src/repro/kernels/fused_kv_attn.py:85-89, 118-137).
+// A slot is a u16 header of T per-stream bit counts and a worst-case-padded
+// payload (1313 K / 801 V words at Yi-6B width, smaller than the packed
+// slots, so the same words buffer holds it).  The slot is staged in shared
+// memory like packed words; thread t < T then sums the header counts before
+// its own stream (the exclusive scan, read from the staged header) and
+// decodes its stream's D codes with the chunked LUT (huffman.cuh, at most 2
+// probes a symbol), writing the same dequantized float32 tile row with the
+// same expression as packed tiles.  Equal codes and scales therefore give a
+// bit-identical output to the packed tile's, and the score, softmax and
+// accumulate code is shared.  What bounds this decode is latency, not the
+// card: each stream is a chain of D dependent probes, and only T of the 256
+// threads work while the others wait.  The LUTs (41 x 256 and 15 x 256 int32
+// at Yi-6B width; up to 401 x 256 for a fitted book, more than shared memory
+// holds) are read from device memory through the read-only path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "huffman.cuh"
 
 namespace {
 
 constexpr float kNegInit = -1e30f;  // finite "-inf" (kernels/ref.py NEG_INIT)
 constexpr int kThreads = 256;
 constexpr int kMaxAcc = 8;  // G*D <= kThreads * kMaxAcc accumulators a CTA
+enum TileKind { kRaw = 0, kPacked = 1, kHuffman = 2 };
 
 struct Params {
   const float* q;  // [B, Hkv*G, D]
   // Stores: [Bs, Hkv, P, ...] with Bs = B, P = NB dense; Bs = 1 for an arena.
-  const void* k_store;  // packed: u32 [Bs,Hkv,P,Wk]; raw: bf16 [Bs,Hkv,P,T,D]
+  const void* k_store;  // packed/huffman: u32 [Bs,Hkv,P,Wk]; raw: bf16 [Bs,Hkv,P,T,D]
   const __nv_bfloat16* k_min;  // [Bs,Hkv,P,D] (packed only)
   const __nv_bfloat16* k_step;
   const void* v_store;
@@ -73,41 +94,73 @@ struct Params {
   const int* nb_valid;  // [B], already clamped to NB
   const int* buf_len;   // [B]
   const int* page_tab;  // [B, NB] arena page of each ring slot; null = dense
+  const int* lut_k;     // huffman: flat [n_nodes * 256] decode LUTs
+  const int* lut_v;
   float* out;           // [B, Hkv*G, D]
-  int Hkv, G, D, T, NB, P, Wk, Wv, bits_k, bits_v, raw;  // P: store block extent
+  int Hkv, G, D, T, NB, P, Wk, Wv, bits_k, bits_v;  // P: store block extent
+  int kind;             // TileKind
+  int hdr_k, hdr_v, probes_k, probes_v;  // huffman: header words, LUT probes
   float scale;
 };
 
+// One tile's source: bf16 values, or a slot of u32 words with its units.
+struct TileSrc {
+  int kind;
+  const void* data;  // bf16 [T, D] (raw) or u32 [W] words
+  const __nv_bfloat16* mn;
+  const __nv_bfloat16* st;
+  int W, bits, hdr, probes;
+  const int* lut;
+};
+
+__device__ __forceinline__ float dequant(float mn, uint32_t c, float st) {
+  return __fmaf_rn(static_cast<float>(c), st, mn);
+}
+
 // Decode one [T, D] tile into shared memory (row stride D + 1, which keeps
-// the column reads of the score loop free of bank conflicts).  `bf16_src`
-// non-null means a bf16 tile (raw store or the tail buffer); otherwise the
-// packed words are staged in `words` and dequantized with the unit scales.
-__device__ void decode_tile(const __nv_bfloat16* bf16_src, const uint32_t* wsrc,
-                            const __nv_bfloat16* mnp, const __nv_bfloat16* stp,
-                            int W, int bits, bool per_channel, int T, int D,
-                            float* tile, float* mn, float* st, uint32_t* words) {
+// the column reads of the score loop free of bank conflicts).  bf16 tiles
+// (raw store or the tail buffer) convert; packed and huffman slots are staged
+// in `words` with their unit scales and dequantized (per channel for K, per
+// token for V).
+__device__ void decode_tile(const TileSrc& src, bool per_channel, int T, int D, float* tile,
+                            float* mn, float* st, uint32_t* words) {
   const int tid = threadIdx.x, nt = blockDim.x, DP = D + 1;
-  if (bf16_src != nullptr) {
+  if (src.kind == kRaw) {
+    const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(src.data);
     for (int i = tid; i < T * D; i += nt) {
       const int t = i / D, d = i - t * D;
-      tile[t * DP + d] = __bfloat162float(bf16_src[i]);
+      tile[t * DP + d] = __bfloat162float(v[i]);
     }
     return;
   }
+  const uint32_t* wsrc = static_cast<const uint32_t*>(src.data);
   const int U = per_channel ? D : T;
-  for (int i = tid; i < W; i += nt) words[i] = wsrc[i];
+  for (int i = tid; i < src.W; i += nt) words[i] = wsrc[i];
   for (int u = tid; u < U; u += nt) {
-    mn[u] = __bfloat162float(mnp[u]);
-    st[u] = __bfloat162float(stp[u]);
+    mn[u] = __bfloat162float(src.mn[u]);
+    st[u] = __bfloat162float(src.st[u]);
   }
   __syncthreads();
-  const int cpw = 32 / bits;
+  if (src.kind == kHuffman) {
+    const uint32_t* payload = words + src.hdr;
+    for (int t = tid; t < T; t += nt) {
+      const int pos = huff::stream_start(words, t);
+      float* row = tile + t * DP;
+      huff::lut_decode_stream(payload, src.W - src.hdr, pos, pos + huff::stream_bits(words, t),
+                              src.lut, src.probes, D, [&](int d, int c) {
+                                const int u = per_channel ? d : t;
+                                row[d] = dequant(mn[u], static_cast<uint32_t>(c), st[u]);
+                              });
+    }
+    return;
+  }
+  const int bits = src.bits, cpw = 32 / bits;
   const uint32_t mask = (1u << bits) - 1u;
   for (int i = tid; i < T * D; i += nt) {
     const int t = i / D, d = i - t * D;
     const uint32_t c = (words[i / cpw] >> ((i % cpw) * bits)) & mask;
     const int u = per_channel ? d : t;
-    tile[t * DP + d] = mn[u] + static_cast<float>(c) * st[u];
+    tile[t * DP + d] = dequant(mn[u], c, st[u]);
   }
 }
 
@@ -182,7 +235,8 @@ __global__ void __launch_bounds__(kThreads) fused_kv_attn_kernel(Params p) {
   float* l_s = m_s + G;           // G
   float* alpha = l_s + G;         // G
   uint32_t* words = reinterpret_cast<uint32_t*>(alpha + G);  // max(Wk, Wv)
-  int* pt_s = reinterpret_cast<int*>(words + (p.raw ? 0 : (p.Wk > p.Wv ? p.Wk : p.Wv)));  // NB
+  const int Wmax = p.kind == kRaw ? 0 : (p.Wk > p.Wv ? p.Wk : p.Wv);
+  int* pt_s = reinterpret_cast<int*>(words + Wmax);  // NB
 
   const int tid = threadIdx.x;
   const size_t bh = static_cast<size_t>(b) * p.Hkv + h;
@@ -208,24 +262,23 @@ __global__ void __launch_bounds__(kThreads) fused_kv_attn_kernel(Params p) {
       if (page < 0 || page >= p.P) continue;
       blk = static_cast<size_t>(h) * p.P + page;
     }
-    if (p.raw) {
-      decode_tile(static_cast<const __nv_bfloat16*>(p.k_store) + blk * T * D,
-                  nullptr, nullptr, nullptr, 0, 0, true, T, D, tile, mn, st, words);
-    } else {
-      decode_tile(nullptr, static_cast<const uint32_t*>(p.k_store) + blk * p.Wk,
-                  p.k_min + blk * D, p.k_step + blk * D, p.Wk, p.bits_k, true,
-                  T, D, tile, mn, st, words);
-    }
+    const bool raw = p.kind == kRaw;
+    const TileSrc ks = {
+        p.kind,
+        raw ? static_cast<const void*>(static_cast<const __nv_bfloat16*>(p.k_store) + blk * T * D)
+            : static_cast<const void*>(static_cast<const uint32_t*>(p.k_store) + blk * p.Wk),
+        raw ? nullptr : p.k_min + blk * D, raw ? nullptr : p.k_step + blk * D,
+        p.Wk, p.bits_k, p.hdr_k, p.probes_k, p.lut_k};
+    decode_tile(ks, true, T, D, tile, mn, st, words);
     __syncthreads();
     scores_softmax(tile, qs, sc, m_s, l_s, alpha, G, T, D, p.scale, T);
-    if (p.raw) {
-      decode_tile(static_cast<const __nv_bfloat16*>(p.v_store) + blk * T * D,
-                  nullptr, nullptr, nullptr, 0, 0, false, T, D, tile, mn, st, words);
-    } else {
-      decode_tile(nullptr, static_cast<const uint32_t*>(p.v_store) + blk * p.Wv,
-                  p.v_min + blk * T, p.v_step + blk * T, p.Wv, p.bits_v, false,
-                  T, D, tile, mn, st, words);
-    }
+    const TileSrc vs = {
+        p.kind,
+        raw ? static_cast<const void*>(static_cast<const __nv_bfloat16*>(p.v_store) + blk * T * D)
+            : static_cast<const void*>(static_cast<const uint32_t*>(p.v_store) + blk * p.Wv),
+        raw ? nullptr : p.v_min + blk * T, raw ? nullptr : p.v_step + blk * T,
+        p.Wv, p.bits_v, p.hdr_v, p.probes_v, p.lut_v};
+    decode_tile(vs, false, T, D, tile, mn, st, words);
     __syncthreads();
     accumulate(acc, tile, sc, alpha, G, T, D);
     __syncthreads();
@@ -233,12 +286,12 @@ __global__ void __launch_bounds__(kThreads) fused_kv_attn_kernel(Params p) {
 
   // The raw tail buffer (the exact residual window), masked by buf_len[b].
   const int bl = p.buf_len[b];
-  decode_tile(p.k_buf + bh * T * D, nullptr, nullptr, nullptr, 0, 0, true, T, D,
-              tile, mn, st, words);
+  const TileSrc kb = {kRaw, p.k_buf + bh * T * D, nullptr, nullptr, 0, 0, 0, 0, nullptr};
+  decode_tile(kb, true, T, D, tile, mn, st, words);
   __syncthreads();
   scores_softmax(tile, qs, sc, m_s, l_s, alpha, G, T, D, p.scale, bl);
-  decode_tile(p.v_buf + bh * T * D, nullptr, nullptr, nullptr, 0, 0, false, T, D,
-              tile, mn, st, words);
+  const TileSrc vb = {kRaw, p.v_buf + bh * T * D, nullptr, nullptr, 0, 0, 0, 0, nullptr};
+  decode_tile(vb, false, T, D, tile, mn, st, words);
   __syncthreads();
   accumulate(acc, tile, sc, alpha, G, T, D);
 
@@ -260,14 +313,16 @@ const char* fused_kv_attn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError().
+// Launches the kernel on `stream` and returns cudaGetLastError().  kind: 0 raw,
+// 1 packed (no-straddle words), 2 huffman (lut_k / lut_v, hdr_*, probes_*).
 int fused_kv_attn_launch(const void* q, const void* k_store, const void* k_min,
                          const void* k_step, const void* v_store, const void* v_min,
                          const void* v_step, const void* k_buf, const void* v_buf,
                          const void* nb_valid, const void* buf_len, const void* page_tab,
-                         void* out, int B, int Hkv, int G, int D, int T, int NB, int P,
-                         int Wk, int Wv,
-                         int bits_k, int bits_v, int raw, float scale, void* stream) {
+                         const void* lut_k, const void* lut_v, void* out, int B, int Hkv,
+                         int G, int D, int T, int NB, int P, int Wk, int Wv, int bits_k,
+                         int bits_v, int kind, int hdr_k, int hdr_v, int probes_k,
+                         int probes_v, float scale, void* stream) {
   Params p;
   p.q = static_cast<const float*>(q);
   p.k_store = k_store;
@@ -281,14 +336,18 @@ int fused_kv_attn_launch(const void* q, const void* k_store, const void* k_min,
   p.nb_valid = static_cast<const int*>(nb_valid);
   p.buf_len = static_cast<const int*>(buf_len);
   p.page_tab = static_cast<const int*>(page_tab);
+  p.lut_k = static_cast<const int*>(lut_k);
+  p.lut_v = static_cast<const int*>(lut_v);
   p.out = static_cast<float*>(out);
   p.Hkv = Hkv; p.G = G; p.D = D; p.T = T; p.NB = NB; p.P = P; p.Wk = Wk; p.Wv = Wv;
-  p.bits_k = bits_k; p.bits_v = bits_v; p.raw = raw; p.scale = scale;
+  p.bits_k = bits_k; p.bits_v = bits_v; p.kind = kind; p.scale = scale;
+  p.hdr_k = hdr_k; p.hdr_v = hdr_v; p.probes_k = probes_k; p.probes_v = probes_v;
+  const bool raw = kind == kRaw;
   const int U = D > T ? D : T;
   const int Wmax = Wk > Wv ? Wk : Wv;
   const size_t smem = sizeof(float) * (static_cast<size_t>(T) * (D + 1) + G * D + G * T
                                        + 2 * U + 3 * G)
-                      + sizeof(uint32_t) * static_cast<size_t>(raw ? 0 : Wmax)
+                      + sizeof(uint32_t) * static_cast<size_t>(raw ? 0 : Wmax)  // slot words
                       + sizeof(int) * static_cast<size_t>(page_tab != nullptr ? NB : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(fused_kv_attn_kernel,

@@ -2,13 +2,14 @@
 compressed cache (``csrc/fused_kv_attn.cu``), and its plain version.
 
 Replaces the Pallas kernel of ``repro.kernels.fused_kv_attn`` (dense and
-paged tiles: raw passthrough and packed/kivi no-straddle words).  One CTA
-per (row, KV head) decodes each live block's K and V tile in shared memory,
-runs the G query rows' scores and online softmax in float32, and finally
-folds in the raw buffer masked by ``buf_len``.  Given a page table, block
-``n`` of row ``b`` is read from arena page ``page_tab[b, n]`` and an
-unassigned entry is skipped; those launches count as
-``fused_kv_attn_paged``.
+paged tiles: raw passthrough, packed/kivi no-straddle words, and huffman
+slots decoded with the chunked LUT).  One CTA per (row, KV head) decodes
+each live block's K and V tile in shared memory, runs the G query rows'
+scores and online softmax in float32, and finally folds in the raw buffer
+masked by ``buf_len``.  Given a page table, block ``n`` of row ``b`` is read
+from arena page ``page_tab[b, n]`` and an unassigned entry is skipped.
+Launches count as ``fused_kv_attn``, with ``_huffman`` for huffman tiles and
+``_paged`` with a page table.
 
 ``fused_cache_attention`` takes the plain version (``ref.
 fused_cache_attention_ref``) only for CPU tensors; for CUDA tensors it
@@ -27,7 +28,8 @@ from repro_torch.kernels.ref import fused_cache_attention_ref as plain
 
 NAME = "fused_kv_attn"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 13 + [_I] * 12 + [ctypes.c_float, _P]
+_ARGTYPES = [_P] * 15 + [_I] * 16 + [ctypes.c_float, _P]
+_KINDS = {"raw": 0, "packed": 1, "huffman": 2}
 
 
 def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
@@ -59,7 +61,8 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     bf, i32 = torch.bfloat16, torch.int32
-    packed = tile.has_scales
+    packed = tile.has_scales  # packed or huffman words with unit scales
+    huff = tile.kind == "huffman"
     store_dt = i32 if packed else bf
     checks = [("q", q, torch.float32, (B, Hq, D)),
               ("k_store", k_store, store_dt, (Bs, Hkv, P, *tile.k_tile)),
@@ -73,14 +76,17 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
         checks.append(("page_tab", page_tab, i32, (B, NB)))
     for name, t, dt, shape in checks:
         runtime.check_tensor(NAME, name, t, dt, shape, dev)
+    lut_k, lut_v = tile.luts(dev) if huff else (None, None)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     ptr = (lambda t: t.data_ptr()) if packed else (lambda t: None)
     runtime.launch(
         NAME, _ARGTYPES, q.data_ptr(), k_store.data_ptr(), ptr(k_min), ptr(k_step),
         v_store.data_ptr(), ptr(v_min), ptr(v_step), k_buf.data_ptr(), v_buf.data_ptr(),
         nb_valid.data_ptr(), buf_len.data_ptr(), page_tab.data_ptr() if paged else None,
+        ptr(lut_k) if huff else None, ptr(lut_v) if huff else None,
         out.data_ptr(), B, Hkv, G, D, T, NB, P,
         tile.k_tile[0] if packed else 0, tile.v_tile[0] if packed else 0,
-        tile.bits_k, tile.bits_v, 0 if packed else 1, float(scale), runtime.stream_ptr(dev),
-        count=f"{NAME}_paged" if paged else NAME)
+        tile.bits_k, tile.bits_v, _KINDS[tile.kind], tile.hdr_k, tile.hdr_v, tile.probes_k,
+        tile.probes_v, float(scale), runtime.stream_ptr(dev),
+        count=NAME + ("_huffman" if huff else "") + ("_paged" if paged else ""))
     return out

@@ -21,6 +21,8 @@ import os
 import torch
 
 from repro_torch.kernels.fused_kv_attn import fused_cache_attention  # noqa: F401  (entry point)
+from repro_torch.kernels.huffman_decode import (  # noqa: F401  (entry points)
+    huffman_attn_scores, huffman_decode)
 from repro_torch.kernels.pack_encode import quant_pack  # noqa: F401  (entry point)
 
 _BACKENDS: dict[str, object] = {}

@@ -9,7 +9,7 @@ import math
 
 import torch
 
-from repro_torch.core import bitpack
+from repro_torch.core import bitpack, huffman
 from repro_torch.core.layouts import quant_block_minmax
 
 NEG_INIT = -1e30  # finite "-inf" so flash combines never produce NaN
@@ -119,3 +119,23 @@ def quant_pack_ref(x: torch.Tensor, rel_scale: float, bits: int, token_wise: boo
     codes, mn, step = quant_block_minmax(x.to(torch.float32), rel_scale, bits, axes, kivi)
     words = bitpack.pack_nostraddle(codes.reshape(*lead, T * D), bits)
     return words, mn, step
+
+
+def huffman_decode_ref(payload, nbits, children, is_symbol, symbols, n_per_stream: int,
+                       max_stream_bits: int) -> torch.Tensor:
+    """Plain branchless-walk decode: payload int32 [..., W], nbits [..., S]
+    -> uint8 [..., S, n_per_stream] (leading dims: one per block)."""
+    return huffman.decode_block_torch(payload, nbits, children, is_symbol, symbols,
+                                      n_per_stream, max_stream_bits)
+
+
+def huffman_attn_scores_ref(payload, nbits, children, is_symbol, symbols, k_min, k_step, q,
+                            max_stream_bits: int) -> torch.Tensor:
+    """Plain Huffman decode + dequant + K.q, one stream a cached token (a
+    [head_dim] K row): payload [..., W], nbits [..., S], k_min / k_step
+    [..., D], q [D] -> scores [..., S] (leading dims: one per block)."""
+    D = q.shape[-1]
+    codes = huffman_decode_ref(payload, nbits, children, is_symbol, symbols, D,
+                               max_stream_bits).to(torch.float32)
+    kd = k_min.to(torch.float32)[..., None, :] + codes * k_step.to(torch.float32)[..., None, :]
+    return kd @ q.to(torch.float32)

@@ -8,7 +8,8 @@ Kernels are CUDA C++ under ``src/repro_torch/csrc``, compiled by ``nvcc`` at
 first use into a shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries land
 in ``build/kernels`` at the repository root, named by a hash of their
-source, so an edited kernel is never served from a stale build.
+source and of every ``csrc`` header it includes, so an edited kernel or
+header is never served from a stale build.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,13 +29,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("fused_kv_attn", "pack_encode")
+KERNELS = ("fused_kv_attn", "pack_encode", "huffman_decode")
 
 # Launches of each hand-written kernel since the last reset: each wrapper
 # adds one where it launches its kernel, and nowhere else.  The Fetch
-# kernel's paged variant (same library, a page table given) counts under a
-# key of its own, so a run shows which path went through the kernel.
-launches = {name: 0 for name in ("fused_kv_attn", "fused_kv_attn_paged", "pack_encode")}
+# kernel's variants (same library: a page table given, huffman tiles) count
+# under keys of their own, so a run shows which path went through the
+# kernel; the huffman_decode library holds three kernels, counted apart.
+launches = {name: 0 for name in (
+    "fused_kv_attn", "fused_kv_attn_paged", "fused_kv_attn_huffman",
+    "fused_kv_attn_huffman_paged", "pack_encode", "huffman_decode",
+    "huffman_attn_scores", "huffman_lut_decode")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # ptxas register / shared-memory report
@@ -68,10 +74,24 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
 def _target(name: str) -> tuple[Path, Path]:
+    """The source of kernel ``name`` and its library's path, named by a hash
+    of the source and of each ``csrc`` header it includes (recursively)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(text)]
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, float]:
@@ -117,17 +137,20 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes, *args, count: str | None = None) -> None:
-    """Call ``<name>_launch(*args)`` of the kernel library, raise if the CUDA
-    runtime refused the launch (the C side returns cudaGetLastError), and
-    count the launch under ``count`` (default: ``name``)."""
-    fn = getattr(library(name), f"{name}_launch")
+def launch(name: str, argtypes, *args, count: str | None = None,
+           entry: str | None = None) -> None:
+    """Call ``<entry>(*args)`` (default ``<name>_launch``) of the kernel
+    library ``name``, raise if the CUDA runtime refused the launch (the C
+    side returns cudaGetLastError), and count the launch under ``count``
+    (default: ``name``)."""
+    fn = getattr(library(name), entry or f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     rc = fn(*args)
     if rc != 0:
         msg = getattr(library(name), f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{entry or name} launch failed: CUDA error {rc} ({msg})")
     launches[count or name] += 1
 
 

@@ -24,7 +24,7 @@ from repro_torch.kernels import ops  # noqa: E402
 # The tests/test_kernels.py sweep shapes (odd head_dim 24 included).
 GRID = [(1, 1, 1, 32, 16, 8), (2, 2, 3, 96, 32, 16), (1, 4, 2, 64, 64, 16),
         (2, 1, 8, 48, 24, 8)]
-LAYOUTS = ["packed", "kivi", "raw"]
+LAYOUTS = ["packed", "kivi", "raw", "huffman"]
 
 _jprefill = jax.jit(JC.prefill, static_argnums=0)
 _jappend = jax.jit(JC.append)

@@ -5,13 +5,16 @@ here, so the file also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import cache as TC  # noqa: E402
 from repro_torch.core import pool as TP  # noqa: E402
-from repro_torch.kernels import fused_kv_attn, pack_encode, runtime  # noqa: E402
+from repro_torch.core import huffman as TH  # noqa: E402
+from repro_torch.core import layouts as TL  # noqa: E402
+from repro_torch.kernels import fused_kv_attn, huffman_decode, pack_encode, runtime  # noqa: E402
 
 
 def _args(c, nb):
@@ -43,7 +46,7 @@ def _filled_cache(layout, nb_valid, buf_len, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["packed", "kivi", "raw"])
+@pytest.mark.parametrize("layout", ["packed", "kivi", "raw", "huffman"])
 def test_fetch_kernel_matches_plain_on_card(layout, cuda):
     spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda)
     q = torch.randn((4, 32, 128), device=cuda)
@@ -93,7 +96,7 @@ GRID = [(1, 1, 1, 32, 16, 8), (2, 2, 3, 96, 32, 16), (1, 4, 2, 64, 64, 16),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["packed", "kivi", "raw"])
+@pytest.mark.parametrize("layout", ["packed", "kivi", "raw", "huffman"])
 @pytest.mark.parametrize("B,Hkv,G,S,D,T", GRID)
 def test_kernels_on_card_match_cpu_path_on_grid(B, Hkv, G, S, D, T, layout, cuda):
     """prefill + appends through the Store kernel on the card give the CPU
@@ -130,7 +133,7 @@ def _paged(c, spec, device, hole=True, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["packed", "kivi", "raw"])
+@pytest.mark.parametrize("layout", ["packed", "kivi", "raw", "huffman"])
 def test_paged_fetch_kernel_matches_plain_on_card(layout, cuda):
     spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda)
     pc = _paged(c, spec, cuda)
@@ -139,7 +142,8 @@ def test_paged_fetch_kernel_matches_plain_on_card(layout, cuda):
     kw = dict(tile=spec.impl.tile_decode(spec, 128), block_size=64)
     runtime.reset_launches()
     got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
-    assert runtime.launches["fused_kv_attn_paged"] == 1 and runtime.launches["fused_kv_attn"] == 0
+    key = "fused_kv_attn_huffman_paged" if layout == "huffman" else "fused_kv_attn_paged"
+    assert runtime.launches[key] == 1 and sum(runtime.launches.values()) == 1
     want = fused_kv_attn.plain(q, *args, **kw)
     assert float((got - want).abs().max()) <= 1e-4
     # without the hole the paged kernel reads what the dense one reads
@@ -185,8 +189,6 @@ def test_paged_server_equals_dense_on_card(cuda):
     """The smoke model served paged (a pool tight enough to preempt) and
     dense on the card: the same greedy tokens, and the paged decode went
     through the paged Fetch kernel and the Store kernel."""
-    import numpy as np
-
     from repro_torch.models import model as TM
     from repro_torch.models import registry as TR
     from repro_torch.serve import scheduler as TS
@@ -210,3 +212,132 @@ def test_paged_server_equals_dense_on_card(cuda):
     assert out["paged"][2] >= 1
     assert out["paged"][1]["fused_kv_attn_paged"] > 0 and out["paged"][1]["fused_kv_attn"] == 0
     assert out["paged"][1]["pack_encode"] > 0
+
+
+@pytest.mark.cuda
+def test_huffman_fetch_bit_identical_to_packed_on_card(cuda):
+    """The same blocks stored packed and huffman (the same codes and
+    scales): the Fetch kernel's outputs are bit-identical, dense and paged,
+    and the huffman launches count under their own keys."""
+    out = {}
+    for layout in ("packed", "huffman"):
+        spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda, seed=3)
+        q = torch.randn((4, 32, 128), device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(4))
+        kw = dict(tile=spec.impl.tile_decode(spec, 128), block_size=64)
+        pc = _paged(c, spec, cuda)
+        runtime.reset_launches()
+        out[layout] = (
+            fused_kv_attn.fused_cache_attention(q, *_args(c, torch.clamp(c.n_flushed, max=16)),
+                                                **kw),
+            fused_kv_attn.fused_cache_attention(
+                q, *_args(pc, torch.clamp(pc.n_flushed, max=16)), pc.page_tab, **kw))
+        if layout == "huffman":
+            assert runtime.launches["fused_kv_attn_huffman"] == 1
+            assert runtime.launches["fused_kv_attn_huffman_paged"] == 1
+    assert torch.equal(out["packed"][0], out["huffman"][0])
+    assert torch.equal(out["packed"][1], out["huffman"][1])
+
+
+def _k_slots(book, device, nblk=8, seed=0):
+    """Real huffman K blocks: random bf16 K quantized as the layout does
+    (rel_scale 0.05, 5 bits) and encoded with ``book``; -> (codes, payload,
+    nbits, slots)."""
+    spec = TC.CacheSpec(layout="huffman", block_size=64, max_seq=1024)
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = torch.randn((nblk, 64, 128), generator=g, device=device).to(torch.bfloat16)
+    codes = TL.quant_block_minmax(k.float(), 0.05, spec.bits_k, (-2,), False)[0]
+    pay_w = spec.impl._slot_words(spec, 128, book)[1]
+    payload, nbits, _ = TH.encode_block_torch(codes, *book.encode_tables(device), pay_w)
+    return codes, payload, nbits, torch.cat([TL.pack_u16_pairs(nbits), payload], -1)
+
+
+def _skewed_book():
+    hist = np.zeros(256, np.int64)
+    hist[:21] = np.logspace(0, 9, 21)[::-1].astype(np.int64)
+    return TH.build_codebook(hist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skewed", [False, True])
+def test_huffman_decode_kernels_match_plain_on_card(skewed, cuda):
+    """Kernels 3 and 4 and the slot LUT decode on real K slots, with the
+    layout's default K book and a skewed book (2 LUT probes): codes
+    bit-exact and lossless, scores within 1e-4."""
+    book = _skewed_book() if skewed else TL.default_codebook(21)
+    assert book.decode_probes == (2 if skewed else 1)
+    codes, payload, nbits, slots = _k_slots(book, cuda)
+    tables = book.as_device_tables(cuda)
+    max_bits = int(nbits.max())
+    runtime.reset_launches()
+    got = huffman_decode.huffman_decode(payload, nbits, *tables, 128, max_bits)
+    assert torch.equal(got, huffman_decode.huffman_decode_plain(payload, nbits, *tables, 128,
+                                                                max_bits))
+    assert torch.equal(got, codes)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kmn, kst, q = (torch.randn(s, generator=g, device=cuda) for s in ((8, 128), (8, 128), (128,)))
+    sc = huffman_decode.huffman_attn_scores(payload, nbits, *tables, kmn, kst.abs(), q,
+                                            max_bits, scale=0.125)
+    want = huffman_decode.huffman_attn_scores_plain(payload, nbits, *tables, kmn, kst.abs(), q,
+                                                    max_bits, scale=0.125)
+    assert float((sc - want).abs().max()) <= 1e-4
+    kw = dict(block_size=64, head_dim=128, hdr_words=32, probes=book.decode_probes)
+    lut = huffman_decode.huffman_lut_decode(slots, book.device_lut(cuda), **kw)
+    assert torch.equal(lut, huffman_decode.huffman_lut_decode_plain(
+        slots, book.device_lut(cuda), **kw))
+    assert torch.equal(lut, codes)
+    assert {k: v for k, v in runtime.launches.items() if v} == {
+        "huffman_decode": 1, "huffman_attn_scores": 1, "huffman_lut_decode": 1}
+
+
+@pytest.mark.cuda
+def test_huffman_walk_edge_cases_on_card(cuda):
+    """A zero-bit stream, a truncated stream and a max_bits cut: the walk
+    and the LUT decode on the card equal their plain versions."""
+    book = TL.default_codebook(21)
+    _, payload, nbits, _ = _k_slots(book, cuda, nblk=3, seed=5)
+    nbits = nbits.clone()
+    nbits[0, 5] = 0
+    nbits[1, -1] //= 2
+    tables = book.as_device_tables(cuda)
+    for max_bits in (int(nbits.max()), 300):
+        a = huffman_decode.huffman_decode(payload, nbits, *tables, 128, max_bits)
+        b = huffman_decode.huffman_decode_plain(payload, nbits, *tables, 128, max_bits)
+        assert torch.equal(a, b), max_bits
+    slots = torch.cat([TL.pack_u16_pairs(nbits), payload], -1)
+    kw = dict(block_size=64, head_dim=128, hdr_words=32, probes=1)
+    assert torch.equal(huffman_decode.huffman_lut_decode(slots, book.device_lut(cuda), **kw),
+                       huffman_decode.huffman_lut_decode_plain(slots, book.device_lut(cuda),
+                                                               **kw))
+
+
+@pytest.mark.cuda
+def test_huffman_server_equals_packed_on_card(cuda):
+    """The smoke model served with huffman and packed caches, dense and
+    paged: the same greedy tokens; the huffman decode went through the
+    huffman Fetch and the chunks through the slot LUT decode."""
+    import dataclasses
+
+    from repro_torch.models import model as TM
+    from repro_torch.models import registry as TR
+    from repro_torch.serve import scheduler as TS
+
+    base = TR.get_smoke_config("yi_6b")
+    params = TM.init_params(base, seed=0, device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, base.vocab_size, 17).astype(np.int32) for _ in range(3)]
+    toks = {}
+    for layout in ("packed", "huffman"):
+        cfg = dataclasses.replace(base, cache_layout=layout)
+        for mode in ("dense", "paged"):
+            srv = TS.Server(cfg, params, TS.ServerConfig(max_slots=3, max_seq=256,
+                                                         cache_mode=mode, attn_backend="fused"))
+            hs = [srv.submit(TS.Request(prompt=p, max_new_tokens=10)) for p in prompts]
+            runtime.reset_launches()
+            srv.run()
+            toks[layout, mode] = [h.result().tokens.tolist() for h in hs]
+            if layout == "huffman":
+                key = "fused_kv_attn_huffman" + ("_paged" if mode == "paged" else "")
+                assert runtime.launches[key] > 0 and runtime.launches["huffman_lut_decode"] > 0
+                assert runtime.launches["fused_kv_attn"] == runtime.launches["pack_encode"] == 0
+    assert toks["huffman", "dense"] == toks["packed", "dense"] == toks["huffman", "paged"]

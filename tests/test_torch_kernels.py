@@ -14,7 +14,7 @@ from repro.core import cache as JC  # noqa: E402
 from repro.kernels import ref as JR  # noqa: E402
 from repro.kernels.pack_encode import quant_pack_pallas  # noqa: E402
 from repro_torch.core import cache as TC  # noqa: E402
-from repro_torch.kernels import fused_kv_attn, ops  # noqa: E402
+from repro_torch.kernels import fused_kv_attn, ops, runtime  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
 
 _jref = jax.jit(JR.fused_cache_attention_ref, static_argnames=("tile", "block_size"))
@@ -89,3 +89,28 @@ def test_store_drop_sentinel_writes_nothing(rng):
         assert torch.equal(a[1:], b[1:])
         assert not torch.equal(a[0, :, 2], b[0, :, 2])
         assert torch.equal(a[0, :, :2], b[0, :, :2])
+
+
+def test_build_name_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel library's build name hashes its source and every csrc
+    header it includes (recursively), so editing a shared header such as
+    huffman.cuh rebuilds each library that includes it; no nvcc needed."""
+    monkeypatch.setattr(runtime, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// not included\n")
+    names = [runtime._target("k")[1].name]
+    for header, text in (("a.cuh", '#pragma once\n  #include "b.cuh"\nint a;\n'),
+                         ("b.cuh", "// b, edited\n")):
+        (tmp_path / header).write_text(text)
+        names.append(runtime._target("k")[1].name)
+    (tmp_path / "c.cuh").write_text("// edited, still not included\n")
+    names.append(runtime._target("k")[1].name)
+    assert len(set(names[:3])) == 3 and names[3] == names[2]
+    assert all(n.startswith("libk-") and n.endswith(".so") for n in names)
+    # the shipped sources: both libraries that include huffman.cuh name it
+    monkeypatch.undo()
+    for name in ("fused_kv_attn", "huffman_decode"):
+        src = runtime._target(name)[0].read_text()
+        assert '#include "huffman.cuh"' in src, name

@@ -41,7 +41,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.serve import scheduler as TS  # noqa: E402
 
-LAYOUTS = ["raw", "packed", "kivi"]
+LAYOUTS = ["raw", "packed", "kivi", "huffman"]
 
 
 def bits_of(x):
@@ -376,6 +376,8 @@ def test_paged_server_matches_reference_server(setup, layout):
     jst, tst = jsrv.stats()["pool"], srv.stats()["pool"]
     for k in ("pages_total", "high_water_pages", "alloc_pages", "freed_pages", "pages_live"):
         assert tst[k] == jst[k], k
+    rep, jrep = srv.memory_report(), jsrv.memory_report()
+    assert (rep["layout"], rep["kv_bytes"]) == (layout, jrep["kv_bytes"])
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

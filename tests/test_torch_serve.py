@@ -108,7 +108,7 @@ def _solo_greedy(tcfg, tp, prompt, n_new):
     return out
 
 
-@pytest.mark.parametrize("layout", ["raw", "packed", "kivi"])
+@pytest.mark.parametrize("layout", ["raw", "packed", "kivi", "huffman"])
 def test_batched_and_chunked_equal_solo(setup, layout):
     """Mid-flight joins and leaves through 2 slots, chunked and solo
     admission: every request's tokens equal its B=1 solo run bit for bit."""
