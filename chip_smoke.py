@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --split-sweep   # phases 1, 2, then the Fetch at S = 1, 2, 4
 
 Phases, in the order they run (11 after 4, 12 after 9, times last); any
 failure exits non-zero before the result lines:
@@ -9,18 +10,24 @@ failure exits non-zero before the result lines:
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the three hand-written kernel libraries from
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) and prints the build
-   seconds and ptxas report.
+   seconds and ptxas report; the Fetch library's split count must equal the
+   wrapper's ``SPLIT_BLOCKS``, and its SASS must hold tensor-core (HMMA)
+   instructions.
 3. Kernel vs plain at Yi-6B shapes (B=4, Hkv=4, G=8, D=128, T=64, NB=64,
    ragged per-row lengths): the Fetch kernel within FETCH_ATOL of its plain
-   version for the packed, kivi, raw and huffman layouts, and on the same
-   blocks the huffman Fetch bit-identical to the packed Fetch; the Store
-   kernel's words and bf16 scales bit-exact, dropped rows untouched.
+   version for the packed, kivi, raw and huffman layouts, each row's output
+   bit-identical alone and in the batch, and two launches bit-identical;
+   on the same blocks the huffman Fetch bit-identical to the packed Fetch;
+   the Store kernel's words and bf16 scales bit-exact, dropped rows
+   untouched.
 4. Paged kernel vs plain at Yi-6B shapes (B=8, arena of 128 pages, shuffled
    page tables, ragged lengths, unassigned entries below a row's live
    blocks): the paged Fetch within FETCH_ATOL of its plain version for
-   packed, kivi, raw and huffman, huffman bit-identical to packed on the same
-   blocks; the Store into arena pages bit-exact, rows that do not flush or
-   whose entry is unassigned leaving the arena untouched.
+   packed, kivi, raw and huffman, each row alone == in the batch, two
+   launches bit-identical, and (no holes) bit-identical to the dense Fetch
+   on the same blocks; huffman bit-identical to packed on the same blocks;
+   the Store into arena pages bit-exact, rows that do not flush or whose
+   entry is unassigned leaving the arena untouched.
 11. Huffman decode kernels at Yi-6B width (NBLK = 4 heads x 64 blocks = 256,
    64 streams of 128 codes) on real huffman K slots, with the layout's
    default K book and a fitted skewed book (longest code over 8 bits, so 2
@@ -60,13 +67,20 @@ failure exits non-zero before the result lines:
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
-   operations over 67 TFLOP/s (H100 SXM data sheet).  The paged Fetch is
-   timed at the paged serving run's last lengths, beside the dense Fetch on
-   the same blocks; the huffman Fetch at the same lengths as the packed one;
-   the huffman decode kernels at phase 11's shapes.
+   operations over the peak rate of the units that run them (H100 SXM data
+   sheet): 495 TFLOP/s TF32 for the Fetch's products (two a product: hi and
+   lo), printed beside the bytes alone and the earlier yardstick of float32
+   operations over 67 TFLOP/s; 67 TFLOP/s for the other kernels.  The
+   Fetch, packed and huffman, is timed at the dense run's last lengths, at
+   the paged run's last lengths on a shuffled arena beside the dense Fetch
+   on the same blocks, and on long rows (4 rows x 64 blocks, buffer 63),
+   with the workspace its split partials take; the huffman decode kernels
+   at phase 11's shapes.
 
 The last three lines are the card (nvidia-smi), a JSON line with one entry
-per kernel, and ``{"ok": true, "device": {...}}``.
+per kernel, and ``{"ok": true, "device": {...}}``.  ``--split-sweep`` builds
+the Fetch library with 1, 2 and 4 ring slots a CTA (``-DFETCH_SPLIT_BLOCKS``)
+and times each on phase 10's Fetch cases, in the order 1, 2, 4, 4, 2, 1.
 """
 
 from __future__ import annotations
@@ -84,6 +98,7 @@ SCORES_ATOL = 1e-4     # huffman_attn_scores vs plain: float32 sums in another o
 MIN_AGREEMENT = 1.0    # batched vs solo greedy-token agreement: exact
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12      # H100 SXM float32, outside the tensor cores
+TF32_FLOPS = 495e12    # H100 SXM TF32 tensor cores, dense
 B, HKV, G, D, T, NB = 4, 4, 8, 128, 64, 64
 PROMPT_LENS = (300, 500, 750, 1000)  # each % 64 >= 33: decode crosses a block
 NEW_TOKENS = 32
@@ -197,15 +212,19 @@ def huffman_slot_bytes(spec, c, nb_valid) -> int:
 
 
 def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
-                   cache=None) -> tuple[float, str]:
+                   cache=None) -> dict:
     """Least time for the Fetch work of these inputs: live blocks, valid
     buffer tokens, q in, output out, and the page table when paged (bytes);
     the two products per block and token (ops).  The scales fold into the
     products (q.(mn + st*c) = q.mn + (q*st).c, and the same for V), so
-    dequantizing each value is a cost of the kernel's design, not of the
-    function, and is not counted.  Huffman slots count their header and the
-    payload words this data fills (from the dense ``cache``) and the two
-    LUTs once; the entropy decode's integer work is not counted."""
+    dequantizing each value is not counted.  Huffman slots count their
+    header and the payload words this data fills (from the dense ``cache``)
+    and the two LUTs once; the entropy decode's integer work is not counted.
+
+    The kernel runs the products on the tensor cores as two TF32 products
+    each (hi and lo), so ``bound_ms`` is the larger of the bytes and those
+    operations over the TF32 rate; ``f32_ms`` keeps the earlier yardstick,
+    the larger of the bytes and the operations over the float32 rate."""
     B = len(nb_valid)
     live = HKV * int(sum(nb_valid))
     toks = HKV * int(sum(buf_len))
@@ -224,11 +243,14 @@ def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
     if paged:
         nbytes += B * NB * 4
     flops = live * per_blk + toks * (4 * G * D + G)
-    return bound(nbytes, flops)
+    b_ms, by = bound(nbytes, 2 * flops, TF32_FLOPS)
+    f_ms, f_by = bound(nbytes, flops)
+    return dict(bound_ms=b_ms, bound_by=by, bytes_ms=1e3 * nbytes / HBM_BYTES_S, f32_ms=f_ms,
+                f32_by=f_by)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / rate
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
@@ -258,6 +280,30 @@ def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None) -> None:
     print(f"  {mode} fetch on the same blocks: huffman output bit-identical to packed")
 
 
+def split_rule_checks(spec, c, q) -> None:
+    """The Fetch's split rule on the card: two launches on the same inputs
+    give the same bits, and each row's output is the same alone as beside
+    the batch's longer and shorter rows (dense: the row's slice of the
+    stores; paged: the shared arena and the row's table)."""
+    import torch
+    from repro_torch.kernels import fused_kv_attn
+
+    run = fused_kv_attn.fused_cache_attention
+    args, kw = fetch_args(spec, c)
+    out = run(q, *args, **kw)
+    mode = "paged" if c.spec.paged else "dense"
+    if not torch.equal(out, run(q, *args, **kw)):
+        raise AssertionError(f"two Fetch launches on the same inputs differ ({spec.layout}, "
+                             f"{mode})")
+    for r in range(q.shape[0]):
+        row = tuple(a if c.spec.paged and i < 6 else a[r:r + 1] for i, a in enumerate(args))
+        if not torch.equal(run(q[r:r + 1], *row, **kw), out[r:r + 1]):
+            raise AssertionError(f"row {r}'s Fetch output alone differs from its output in "
+                                 f"the batch ({spec.layout}, {mode})")
+    print(f"  split rule ({spec.layout}, {mode}): two launches bit-identical; "
+          f"{q.shape[0]}/{q.shape[0]} rows alone == in the batch")
+
+
 def phase_kernels(report: dict) -> None:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -279,6 +325,7 @@ def phase_kernels(report: dict) -> None:
             report["fetch_huffman_err"] = err
         else:
             fetch_err = max(fetch_err, err)
+        split_rule_checks(spec, c, q)
     same_blocks_identical(nb_valid, buf_len, seed=9)
 
     store_err = 0.0
@@ -346,6 +393,17 @@ def phase_paged_kernels(report: dict) -> None:
             report["fetch_huffman_paged_err"] = e
         else:
             err = max(err, e)
+        split_rule_checks(spec, pc, q)
+        # no holes: the paged kernel must give the dense kernel's bits
+        full = make_paged(c, nb_valid, seed=i)
+        fargs, _ = fetch_args(spec, full)
+        dargs, _ = fetch_args(spec, c)
+        if not torch.equal(fused_kv_attn.fused_cache_attention(q, *fargs, **kw),
+                           fused_kv_attn.fused_cache_attention(q, *dargs, **kw)):
+            raise AssertionError(f"paged Fetch on a shuffled arena differs from dense on the "
+                                 f"same blocks ({layout})")
+        print(f"  paged fetch {layout:7s} on a shuffled arena bit-identical to dense on the "
+              f"same blocks")
     report["fetch_paged_err"] = err
     same_blocks_identical(nb_valid, buf_len, seed=19, holes=holes)
 
@@ -920,23 +978,95 @@ def phase_huffman_serve(report: dict, cfg, params) -> None:
         per_step=n_layers, page_b=page_b)
 
 
+def fetch_cases() -> dict:
+    """Phase 10's Fetch inputs, packed and huffman: the dense run's last
+    decode-step lengths, the paged run's last lengths on a shuffled arena
+    (and the dense cache holding the same blocks), and long rows (every
+    slot of the ring live, buffer at 63)."""
+    from repro_torch.kernels import fused_kv_attn
+
+    nb_d = [(L + NEW_TOKENS - 1) // T for L in PROMPT_LENS]
+    bl_d = [(L + NEW_TOKENS - 1) % T for L in PROMPT_LENS]
+    nb_p = [(L + PAGED_NEW - 1) // T for L in PAGED_LENS]
+    bl_p = [(L + PAGED_NEW - 1) % T for L in PAGED_LENS]
+    nb_l, bl_l = [NB] * B, [T - 1] * B
+    out = {}
+    for layout in ("packed", "huffman"):
+        spec, c, q = make_cache(layout, nb_d, bl_d, seed=21)
+        out[layout, "dense"] = dict(spec=spec, c=c, dense=c, q=q, nb=nb_d, bl=bl_d)
+        spec, c, q = make_cache(layout, nb_p, bl_p, seed=22)
+        out[layout, "paged"] = dict(spec=spec, c=make_paged(c, nb_p, seed=3), dense=c, q=q,
+                                    nb=nb_p, bl=bl_p)
+        out[layout, "paged blocks, dense"] = dict(spec=spec, c=c, dense=c, q=q, nb=nb_p, bl=bl_p)
+        spec, c, q = make_cache(layout, nb_l, bl_l, seed=23)
+        out[layout, "long rows"] = dict(spec=spec, c=c, dense=c, q=q, nb=nb_l, bl=bl_l)
+    for x in out.values():
+        args, kw = fetch_args(x["spec"], x["c"])
+        x["run"] = lambda q=x["q"], a=args, k=kw: fused_kv_attn.fused_cache_attention(q, *a, **k)
+        x["plain"] = lambda q=x["q"], a=args, k=kw: fused_kv_attn.plain(q, *a, **k)
+    return out
+
+
+def fetch_times(report: dict, cases: dict) -> list[dict]:
+    """Phase 10, Fetch part: kernel and plain times of each case, its bound
+    (and the float32 yardstick and the bytes alone), and the workspace the
+    split partials take; the JSON entries of the four Fetch rows."""
+    from repro_torch.kernels import fused_kv_attn
+
+    split = fused_kv_attn.split_blocks()
+    steps = {"packed": report["per_step"]["fused_kv_attn"], "huffman": report["huffman"]["per_step"]}
+    rows = {}
+    for (layout, mode), x in cases.items():
+        ms = timed(x["run"])
+        plain_ms = None
+        if mode != "long rows":  # the plain huffman decode of 1024 blocks takes seconds
+            plain_ms = (timed(x["plain"]) if layout == "packed"
+                        else timed(x["plain"], iters=5, warmup=1))
+        paged = mode == "paged"
+        bd = fetch_bound_ms(x["spec"], x["nb"], x["bl"], paged=paged, cache=x["dense"])
+        ws = 4 * fused_kv_attn.workspace_elems(len(x["nb"]), HKV, G, D, NB, split)
+        plain_s = "" if plain_ms is None else f"plain {plain_ms:.4f} ms, "
+        print(f"  fetch ({layout}, {mode}, B={len(x['nb'])}, nb_valid {x['nb']}, buf_len "
+              f"{x['bl']}): kernel {ms:.4f} ms, {plain_s}bound {bd['bound_ms']:.6f} ms "
+              f"({bd['bound_by']}; bytes alone {bd['bytes_ms']:.6f} ms; float32 yardstick "
+              f"{bd['f32_ms']:.6f} ms, {bd['f32_by']}), {ms / bd['bound_ms']:.0f}x the bound; "
+              f"split workspace {ws} B; {steps[layout]} launches/decode step")
+        rows[layout, mode] = dict(ms=ms, plain_ms=plain_ms, **bd)
+    report["fetch_rows"] = rows
+    entries = []
+    for name, replaces, (layout, mode), launches, err in (
+            ("fused_kv_attn", "src/repro/kernels/fused_kv_attn.py:57", ("packed", "dense"),
+             report["launches"]["fused_kv_attn"], report["fetch_err"]),
+            ("fused_kv_attn_paged", "src/repro/kernels/fused_kv_attn.py:113", ("packed", "paged"),
+             report["paged"]["launches"]["fused_kv_attn_paged"], report["fetch_paged_err"]),
+            ("fused_kv_attn_huffman", "src/repro/core/layouts.py:822", ("huffman", "dense"),
+             report["huffman"]["launches_dense"]["fused_kv_attn_huffman"],
+             report["fetch_huffman_err"]),
+            ("fused_kv_attn_huffman_paged", "src/repro/core/layouts.py:822",
+             ("huffman", "paged"),
+             report["huffman"]["launches_paged"]["fused_kv_attn_huffman_paged"],
+             report["fetch_huffman_paged_err"])):
+        r = rows[layout, mode]
+        entries.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/csrc/fused_kv_attn.cu", "replaces": replaces,
+                        "launches": launches, "max_abs_err": err, "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    return entries
+
+
 def phase_times(report: dict) -> list[dict]:
     """Phase 10: kernel and plain times at the main path's shapes."""
     import torch
-    from repro_torch.core import cache as C
-    from repro_torch.kernels import fused_kv_attn, pack_encode
+    from repro_torch.kernels import pack_encode
 
-    # The last decode step's per-row lengths on the main path.
-    nb_valid = [(L + NEW_TOKENS - 1) // T for L in PROMPT_LENS]
-    buf_len = [(L + NEW_TOKENS - 1) % T for L in PROMPT_LENS]
-    spec, c, q = make_cache("packed", nb_valid, buf_len, seed=21)
-    args, kw = fetch_args(spec, c)
-    f_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *args, **kw))
-    f_plain = timed(lambda: fused_kv_attn.plain(q, *args, **kw))
-    f_bound, f_by = fetch_bound_ms(spec, nb_valid, buf_len)
+    cases = fetch_cases()
+    fetch = fetch_times(report, cases)
 
     # Store, decode-step shape: the [B, 1] slot vector with every row
     # flushing (a flush step), and with none (the other 63 steps of 64).
+    x = cases["packed", "dense"]
+    spec, c = x["spec"], x["c"]
     kb, vb = c.k_buf[:, :, None], c.v_buf[:, :, None]
     flush = torch.arange(B, dtype=torch.int32, device="cuda")[:, None] + 10
     drop = torch.full((B, 1), NB, dtype=torch.int32, device="cuda")
@@ -950,37 +1080,12 @@ def phase_times(report: dict) -> list[dict]:
     s_bytes = (n_val * 2 + B * 4 + B * HKV * 4 * (spec.words_k(D) + spec.words_v(D))
                + B * HKV * 2 * 2 * (D + T))
     s_bound, s_by = bound(s_bytes, 4 * n_val)
-    print(f"  fetch (packed, nb_valid {nb_valid}, buf_len {buf_len}): kernel {f_ms:.4f} ms, "
-          f"plain {f_plain:.4f} ms, bound {f_bound:.5f} ms ({f_by}), "
-          f"{report['per_step']['fused_kv_attn']} launches/decode step")
     print(f"  store (decode step, B={B}): kernel {s_ms:.4f} ms with every row flushing, "
           f"{s_drop:.4f} ms with none, plain {s_plain:.4f} ms, bound {s_bound:.5f} ms "
           f"({s_by}), {report['per_step']['pack_encode']} launches/decode step")
-
-    # The paged Fetch at the paged serving run's last decode step, on a
-    # shuffled arena, beside the dense Fetch reading the same blocks.
-    nb_p = [(L + PAGED_NEW - 1) // T for L in PAGED_LENS]
-    bl_p = [(L + PAGED_NEW - 1) % T for L in PAGED_LENS]
-    spec, c, q = make_cache("packed", nb_p, bl_p, seed=22)
-    pc = make_paged(c, nb_p, seed=3)
-    pargs, kw = fetch_args(spec, pc)
-    dargs, _ = fetch_args(spec, c)
-    p_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *pargs, **kw))
-    d_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *dargs, **kw))
-    p_plain = timed(lambda: fused_kv_attn.plain(q, *pargs, **kw))
-    p_bound, p_by = fetch_bound_ms(spec, nb_p, bl_p, paged=True)
-    print(f"  paged fetch (packed, B={PB}, arena {P_ARENA} pages, nb_valid {nb_p}, buf_len "
-          f"{bl_p}): kernel {p_ms:.4f} ms, dense kernel on the same blocks {d_ms:.4f} ms, "
-          f"plain {p_plain:.4f} ms, bound {p_bound:.5f} ms ({p_by}), "
-          f"{report['paged']['per_step']} launches/decode step")
-    h = huffman_times(report)
+    h = huffman_times(report, cases["huffman", "dense"])
     return [
-        {"name": "fused_kv_attn", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_kv_attn.cu",
-         "replaces": "src/repro/kernels/fused_kv_attn.py:57",
-         "launches": report["launches"]["fused_kv_attn"], "max_abs_err": report["fetch_err"],
-         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
-         "library_ms": None},
+        fetch[0],
         {"name": "pack_encode", "route": "cuda",
          "source": "src/repro_torch/csrc/pack_encode.cu",
          "replaces": "src/repro/kernels/pack_encode.py:46",
@@ -990,34 +1095,20 @@ def phase_times(report: dict) -> list[dict]:
          "max_abs_err": report["store_err"],
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None},
-        {"name": "fused_kv_attn_paged", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_kv_attn.cu",
-         "replaces": "src/repro/kernels/fused_kv_attn.py:113",
-         "launches": report["paged"]["launches"]["fused_kv_attn_paged"],
-         "max_abs_err": report["fetch_paged_err"], "ms": p_ms, "plain_ms": p_plain,
-         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
+        *fetch[1:],
         *h,
     ]
 
 
-def huffman_times(report: dict) -> list[dict]:
-    """Phase 10, huffman part: the huffman Fetch (dense and paged, at the
-    same lengths as the packed one), the three huffman decode kernels at
-    phase 11's shapes, and the plain huffman Store of a decode step."""
+def huffman_times(report: dict, case: dict) -> list[dict]:
+    """Phase 10, huffman part: the three huffman decode kernels at phase
+    11's shapes, and the plain huffman Store of a decode step (on the dense
+    huffman Fetch case's cache)."""
     import torch
-    from repro_torch.kernels import fused_kv_attn, huffman_decode, ops
+    from repro_torch.kernels import huffman_decode, ops
 
+    spec, c = case["spec"], case["c"]
     hr = report["huffman"]
-    nb_valid = [(L + NEW_TOKENS - 1) // T for L in PROMPT_LENS]
-    buf_len = [(L + NEW_TOKENS - 1) % T for L in PROMPT_LENS]
-    spec, c, q = make_cache("huffman", nb_valid, buf_len, seed=21)
-    args, kw = fetch_args(spec, c)
-    f_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *args, **kw))
-    f_plain = timed(lambda: fused_kv_attn.plain(q, *args, **kw), iters=5, warmup=1)
-    f_bound, f_by = fetch_bound_ms(spec, nb_valid, buf_len, cache=c)
-    print(f"  fetch (huffman, nb_valid {nb_valid}, buf_len {buf_len}): kernel {f_ms:.4f} ms, "
-          f"plain {f_plain:.4f} ms, bound {f_bound:.5f} ms ({f_by}), {hr['per_step']} "
-          f"launches/decode step")
 
     # The plain huffman Store of one layer in a decode step (B rows, drop
     # sentinel or every row flushing): the kernels it launches and their
@@ -1042,33 +1133,7 @@ def huffman_times(report: dict) -> list[dict]:
               f"{n} kernel launches, {dev_ms:.4f} ms of kernel time, {host_ms:.3f} ms of wall "
               f"a call")
 
-    nb_p = [(L + PAGED_NEW - 1) // T for L in PAGED_LENS]
-    bl_p = [(L + PAGED_NEW - 1) % T for L in PAGED_LENS]
-    spec, c, q = make_cache("huffman", nb_p, bl_p, seed=22)
-    pc = make_paged(c, nb_p, seed=3)
-    pargs, kw = fetch_args(spec, pc)
-    dargs, _ = fetch_args(spec, c)
-    p_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *pargs, **kw))
-    d_ms = timed(lambda: fused_kv_attn.fused_cache_attention(q, *dargs, **kw))
-    p_plain = timed(lambda: fused_kv_attn.plain(q, *pargs, **kw), iters=5, warmup=1)
-    p_bound, p_by = fetch_bound_ms(spec, nb_p, bl_p, paged=True, cache=c)
-    print(f"  paged fetch (huffman, B={PB}, nb_valid {nb_p}): kernel {p_ms:.4f} ms, dense "
-          f"kernel on the same blocks {d_ms:.4f} ms, plain {p_plain:.4f} ms, bound "
-          f"{p_bound:.5f} ms ({p_by}), {hr['per_step']} launches/decode step")
-    entries = [
-        {"name": "fused_kv_attn_huffman", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_kv_attn.cu",
-         "replaces": "src/repro/core/layouts.py:822",
-         "launches": hr["launches_dense"]["fused_kv_attn_huffman"],
-         "max_abs_err": report["fetch_huffman_err"], "ms": f_ms, "plain_ms": f_plain,
-         "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
-        {"name": "fused_kv_attn_huffman_paged", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_kv_attn.cu",
-         "replaces": "src/repro/core/layouts.py:822",
-         "launches": hr["launches_paged"]["fused_kv_attn_huffman_paged"],
-         "max_abs_err": report["fetch_huffman_paged_err"], "ms": p_ms, "plain_ms": p_plain,
-         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
-    ]
+    entries = []
 
     # The decode kernels at phase 11's shapes, default K book.  Bytes: the
     # payload words the streams fill, the bit counts, tables or LUT once,
@@ -1117,6 +1182,52 @@ def huffman_times(report: dict) -> list[dict]:
     return entries
 
 
+def check_build() -> None:
+    """Phase 2's checks of the Fetch library: its split count is the
+    wrapper's, and its products compiled to tensor-core instructions."""
+    import os
+
+    from repro_torch.kernels import fused_kv_attn, runtime
+
+    split = fused_kv_attn.split_blocks()
+    if split != fused_kv_attn.SPLIT_BLOCKS:
+        raise AssertionError(f"the Fetch library takes {split} ring slots a CTA, the wrapper "
+                             f"{fused_kv_attn.SPLIT_BLOCKS}")
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(runtime.library_path("fused_kv_attn"))],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    if hmma == 0:
+        raise AssertionError("the Fetch library's SASS holds no HMMA instruction")
+    print(f"    fused_kv_attn: {split} ring slots a CTA; {hmma} HMMA instructions in its SASS")
+
+
+def split_sweep() -> None:
+    """``--split-sweep``: the Fetch built with 1, 2 and 4 ring slots a CTA
+    (library variants), each on phase 10's cases, timed in the order 1, 2,
+    4, 4, 2, 1; each variant's output is held against the default build's
+    within FETCH_ATOL."""
+    import torch
+    from repro_torch.kernels import fused_kv_attn, runtime
+
+    cases = fetch_cases()
+    ref = {k: x["run"]() for k, x in cases.items()}
+    times: dict = {}
+    for split in (1, 2, 4, 4, 2, 1):
+        with runtime.variant("fused_kv_attn", FETCH_SPLIT_BLOCKS=split):
+            if fused_kv_attn.split_blocks() != split:
+                raise AssertionError(f"variant built with {fused_kv_attn.split_blocks()} slots")
+            for k, x in cases.items():
+                err = float((x["run"]() - ref[k]).abs().max())
+                torch.cuda.synchronize()
+                if not err <= FETCH_ATOL:
+                    raise AssertionError(f"S={split} {k}: {err} from the default build")
+                times.setdefault(k, {}).setdefault(split, []).append(timed(x["run"]))
+    for (layout, mode), t in times.items():
+        print(f"  fetch ({layout}, {mode}): " + "; ".join(
+            f"S={s} " + " / ".join(f"{v:.4f}" for v in ts) + " ms" for s, ts in sorted(t.items())))
+
+
 def main() -> int:
     import torch
 
@@ -1135,6 +1246,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {name}: {line.strip()}")
+    check_build()
+    if sys.argv[1:] == ["--split-sweep"]:
+        print("[split sweep] the Fetch at 1, 2 and 4 ring slots a CTA", flush=True)
+        split_sweep()
+        print(f"total {time.monotonic() - t_start:.1f} s")
+        print(card_line())
+        return 0
     report: dict = {}
     print("[3] kernels vs plain at Yi-6B shapes", flush=True)
     phase_kernels(report)

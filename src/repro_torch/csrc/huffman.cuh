@@ -35,34 +35,59 @@ __device__ __forceinline__ int stream_start(const uint32_t* hdr, int s) {
   return pos;
 }
 
-// The 8 stream bits at bit position pos (`_peek_chunk`): straddles at most
-// two words, both reads clamped to the last of the n_words payload words.
-__device__ __forceinline__ uint32_t peek_chunk(const uint32_t* payload, int pos, int n_words) {
-  const int w = min(pos >> 5, n_words - 1);
-  const uint32_t b = static_cast<uint32_t>(pos & 31);
-  const uint32_t lo = payload[w] >> b;
-  const uint32_t hi = (payload[min(w + 1, n_words - 1)] << (31u - b)) << 1;  // x << (32 - b)
-  return (lo | hi) & ((1u << kChunkBits) - 1u);
+// stream_start for a whole warp at once: lane L holds stream s = s0 + L
+// (s0 the warp's first stream; streams at or past n_streams count nothing).
+// The streams before the warp are summed lane-strided and reduced, the
+// warp's own by a shuffle scan.  Every lane of the warp must call it.
+__device__ __forceinline__ int stream_start_warp(const uint32_t* hdr, int s, int n_streams) {
+  const int lane = threadIdx.x & 31, s0 = s - lane;
+  int before = 0;
+  for (int i = lane; i < s0; i += 32) before += stream_bits(hdr, i);
+  before = __reduce_add_sync(0xffffffffu, before);
+  const int own = s < n_streams ? stream_bits(hdr, s) : 0;
+  int incl = own;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  return before + incl - own;
 }
 
 // Decode n symbols of one stream that starts at bit pos and owns the bits
-// [pos, end): emit(j, sym) is called for j = 0 .. n-1 in order.  The LUT is
-// read through the read-only data path.
+// [pos, end): emit(j, sym) is called for j = 0 .. n-1 in order.  A probe
+// reads the 8 stream bits at pos (`_peek_chunk`): they straddle at most the
+// two words pos >> 5 and the next, each read clamped to the last of the
+// n_words payload words.  Those two words are kept in registers and the word
+// after them is loaded ahead, so a symbol's chain is its LUT probes alone (a
+// probe consumes at most 8 bits, so pos crosses at most one word a probe).
+// The LUT is read through the read-only data path.
 template <typename Emit>
 __device__ __forceinline__ void lut_decode_stream(const uint32_t* payload, int n_words, int pos,
                                                   int end, const int* __restrict__ lut,
                                                   int probes, int n, Emit emit) {
+  const int last = n_words - 1;
+  int w = pos >> 5;
+  uint32_t lo = payload[min(w, last)], hi = payload[min(w + 1, last)];
+  uint32_t nx = payload[min(w + 2, last)];
   for (int j = 0; j < n; ++j) {
     int state = 0, sym = 0;
     bool done = false;
     for (int k = 0; k < probes; ++k) {
       if (done) break;
-      const int e = __ldg(lut + (state << kChunkBits) + peek_chunk(payload, pos, n_words));
+      const uint32_t b = static_cast<uint32_t>(pos & 31);
+      const uint32_t chunk = ((lo >> b) | ((hi << (31u - b)) << 1)) & ((1u << kChunkBits) - 1u);
+      const int e = __ldg(lut + (state << kChunkBits) + chunk);
       pos += (e >> 8) & 0xF;
       state = e >> 16;
       if ((e >> 12) & 1) {
         sym = e & 0xFF;
         done = true;
+      }
+      if ((pos >> 5) != w) {
+        ++w;
+        lo = hi;
+        hi = nx;
+        nx = payload[min(w + 2, last)];
       }
     }
     emit(j, pos <= end ? sym : 0);

@@ -14,6 +14,7 @@ header is never served from a stale build.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -77,11 +78,12 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def _target(name: str) -> tuple[Path, Path]:
+def _target(name: str, defines: tuple = ()) -> tuple[Path, Path]:
     """The source of kernel ``name`` and its library's path, named by a hash
-    of the source and of each ``csrc`` header it includes (recursively)."""
+    of the source, of each ``csrc`` header it includes (recursively) and of
+    the preprocessor ``defines`` ((NAME, value) pairs) it is built with."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256()
+    h = hashlib.sha256(repr(defines).encode())
     todo, seen = [src], set()
     while todo:
         path = todo.pop(0)
@@ -94,23 +96,25 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS) -> dict[str, float]:
+def build(names=KERNELS, defines: tuple = ()) -> dict[str, float]:
     """Compile every named kernel that has no current build, one ``nvcc``
-    per source, all started together.  Returns each build's seconds
-    (0.0 where a current library already existed)."""
+    per source, all started together, each with ``-D`` of the ``defines``.
+    Returns each build's seconds (0.0 where a current library already
+    existed)."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, secs = {}, {}
     t0 = time.monotonic()
     for name in names:
-        src, lib = _target(name)
+        src, lib = _target(name, defines)
         if lib.exists():
             secs[name] = 0.0
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines), "-o", str(tmp),
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
     for name, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
@@ -122,19 +126,45 @@ def build(names=KERNELS) -> dict[str, float]:
     return secs
 
 
+def library_path(name: str) -> Path:
+    """Where the current build of kernel ``name`` lives."""
+    return _target(name)[1]
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if needed)."""
     lib = _libs.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_target(name)[1]))
-        launch = getattr(lib, f"{name}_launch")
-        launch.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ctypes.c_int]
+        lib = _load(name)
         _libs[name] = lib
     return lib
+
+
+def _load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    build((name,), defines)
+    lib = ctypes.CDLL(str(_target(name, defines)[1]))
+    launch = getattr(lib, f"{name}_launch")
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    return lib
+
+
+@contextlib.contextmanager
+def variant(name: str, **defines):
+    """Within the block, kernel ``name`` launches from a build with these
+    preprocessor defines: a way to measure a kernel's compile-time constant
+    at other values.  The package itself never sets one."""
+    saved = _libs.get(name)
+    _libs[name] = _load(name, tuple(sorted(defines.items())))
+    try:
+        yield _libs[name]
+    finally:
+        if saved is None:
+            _libs.pop(name)
+        else:
+            _libs[name] = saved
 
 
 def launch(name: str, argtypes, *args, count: str | None = None,

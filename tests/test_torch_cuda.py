@@ -83,6 +83,10 @@ def test_kernel_wrappers_reject_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError, match="fused_kv_attn"):
         fused_kv_attn.fused_cache_attention(
             q, *_args(c, c.n_flushed), tile=spec.impl.tile_decode(spec, 128), block_size=64)
+    with pytest.raises(ValueError, match="fused_kv_attn"):  # G = 9: past the kernel's n-tile
+        fused_kv_attn.fused_cache_attention(
+            torch.randn((1, 36, 128), device=cuda), *_args(c, c.n_flushed),
+            tile=spec.impl.tile_decode(spec, 128), block_size=64)
     with pytest.raises(ValueError, match="pack_encode"):
         pack_encode.pack_encode(
             c.k_buf[:, :, None], c.v_buf[:, :, None], torch.zeros((1, 1), device=cuda),
@@ -153,6 +157,30 @@ def test_paged_fetch_kernel_matches_plain_on_card(layout, cuda):
     b = fused_kv_attn.fused_cache_attention(
         q, *_args(c, torch.clamp(c.n_flushed, max=spec.n_blocks)), **kw)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("layout", ["packed", "raw", "huffman"])
+def test_fetch_split_rule_on_card(layout, paged, cuda):
+    """The Fetch's split rule: each row's output is bit-identical alone and
+    beside longer and shorter rows (dense: the row's slice of the stores;
+    paged: the shared arena and its table row), and two launches on the same
+    inputs give the same bits."""
+    spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda, seed=5)
+    if paged:
+        c = _paged(c, spec, cuda)
+    q = torch.randn((4, 32, 128), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    args = _args(c, torch.clamp(c.n_flushed, max=spec.n_blocks)) + (
+        (c.page_tab,) if paged else ())
+    kw = dict(tile=spec.impl.tile_decode(spec, 128), block_size=64)
+    out = fused_kv_attn.fused_cache_attention(q, *args, **kw)
+    assert torch.equal(out, fused_kv_attn.fused_cache_attention(q, *args, **kw))
+    for r in range(4):
+        row = tuple(a if paged and i < 6 else a[r:r + 1] for i, a in enumerate(args))
+        assert torch.equal(fused_kv_attn.fused_cache_attention(q[r:r + 1], *row, **kw),
+                           out[r:r + 1]), r
 
 
 @pytest.mark.cuda
