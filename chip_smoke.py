@@ -32,9 +32,10 @@ failure exits non-zero before the result lines:
    64 streams of 128 codes) on real huffman K slots, with the layout's
    default K book and a fitted skewed book (longest code over 8 bits, so 2
    LUT probes): the public entry points ``huffman_decode`` and
-   ``huffman_attn_scores`` and the slot LUT decode, driven once each per book
-   with the counts zeroed just before; codes bit-exact against the plain
-   versions and equal to the quantized codes, scores within SCORES_ATOL.
+   ``huffman_attn_scores`` once each per book and the slot LUT decode twice
+   (with the book's multi-symbol table and with the LUT alone), with the
+   counts zeroed just before; codes bit-exact against the plain versions and
+   equal to the quantized codes, scores within SCORES_ATOL.
 5. Serve, dense: a Server on full-width Yi-6B (random weights from a seed,
    float32, all 32 layers; built once and shared by every serving phase), 4
    requests of several hundred to 1000 prompt tokens, 32 new tokens each,
@@ -60,8 +61,10 @@ failure exits non-zero before the result lines:
 12. Serve huffman (``cache_layout="huffman"``, the same weights): (a) dense
    on phase 5's requests and server shape, (b) paged on phase 9(a)'s
    requests and pool bytes.  Every pure decode step must launch the huffman
-   Fetch (dense, or paged) once per layer and nothing else; the chunks must
-   have run the slot LUT decode.  Greedy tokens must equal phase 5's and
+   Fetch (dense, or paged) once per layer and nothing else; every chunk must
+   run the slot LUT decode once a span of its store scan and layer (K and V
+   in one launch: 4 spans x 32 layers = 128), in the run and in the profiled
+   chunks.  Greedy tokens must equal phase 5's and
    phase 9(a)'s packed tokens exactly (the same codes, entropy-coded).  One
    decode step and one chunk of each are profiled as in phase 7.
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
@@ -74,8 +77,12 @@ failure exits non-zero before the result lines:
    Fetch, packed and huffman, is timed at the dense run's last lengths, at
    the paged run's last lengths on a shuffled arena beside the dense Fetch
    on the same blocks, and on long rows (4 rows x 64 blocks, buffer 63),
-   with the workspace its split partials take; the huffman decode kernels
-   at phase 11's shapes.
+   with the workspace its split partials take; the Store at a decode step's
+   shape (every row flushing, and none: CTAs that return at once, the
+   method's launch floor), a chunk's (B=1) and 8 rows into arena pages; the
+   slot LUT decode at the chunk path's shape (one span of one row, K and V in
+   one launch) and at phase 11's 256 K slots; the walk kernels at phase 11's
+   shapes.
 
 The last three lines are the card (nvidia-smi), a JSON line with one entry
 per kernel, and ``{"ok": true, "device": {...}}``.  ``--split-sweep`` builds
@@ -476,6 +483,7 @@ def huffman_inputs(seed: int = 60) -> list[dict]:
         out.append(dict(name=name, book=book, codes=codes, slots=slots, hdr=hdr,
                         payload=slots[:, hdr:].contiguous(), nbits=nbits,
                         tables=book.as_device_tables("cuda"), lut=book.device_lut("cuda"),
+                        multi=book.device_multi_lut("cuda"),
                         max_bits=int(nbits.max()), kmn=kmn.to(torch.bfloat16).float(),
                         kst=kst.to(torch.bfloat16).float(), q=q, scale=1.0 / np.sqrt(D)))
     return out
@@ -496,17 +504,18 @@ def phase_huffman_kernels(report: dict) -> None:
             ops.huffman_decode(x["payload"], x["nbits"], *x["tables"], D, x["max_bits"]),
             ops.huffman_attn_scores(x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"],
                                     x["q"], x["max_bits"], scale=x["scale"]),
-            huffman_decode.huffman_lut_decode(x["slots"], x["lut"], block_size=T, head_dim=D,
-                                              hdr_words=x["hdr"],
-                                              probes=x["book"].decode_probes)))
+            *(huffman_decode.huffman_lut_decode(x["slots"], x["lut"], block_size=T, head_dim=D,
+                                                hdr_words=x["hdr"],
+                                                probes=x["book"].decode_probes, multi=m)
+              for m in (x["multi"], None))))
     torch.cuda.synchronize()
     launches = {k: v for k, v in runtime.launches.items() if v}
-    want = {"huffman_decode": 2, "huffman_attn_scores": 2, "huffman_lut_decode": 2}
+    want = {"huffman_decode": 2, "huffman_attn_scores": 2, "huffman_lut_decode": 4}
     print(f"  launches of the driven calls: {launches}")
     if launches != want:
         raise AssertionError(f"huffman kernel launches {launches}, expected {want}")
     err = 0.0
-    for x, (codes, scores, lut_codes) in zip(inputs, outs):
+    for x, (codes, scores, multi_codes, lut_codes) in zip(inputs, outs):
         book = x["book"]
         plain = huffman_decode.huffman_decode_plain(x["payload"], x["nbits"], *x["tables"], D,
                                                     x["max_bits"])
@@ -523,15 +532,17 @@ def phase_huffman_kernels(report: dict) -> None:
                   f"scores within {SCORES_ATOL}": e <= SCORES_ATOL
                   and bool(torch.isfinite(scores).all()),
                   "LUT slot codes == plain": torch.equal(lut_codes, lut_plain),
-                  "LUT slot codes == quantized codes": torch.equal(lut_codes, x["codes"])}
+                  "LUT slot codes == quantized codes": torch.equal(lut_codes, x["codes"]),
+                  "multi-symbol slot codes == plain": torch.equal(multi_codes, lut_plain)}
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
             raise AssertionError(f"huffman kernels, {x['name']} book: failed {bad} "
                                  f"(scores max |err| {e})")
         print(f"  {x['name']:7s} book: max code length {int(book.lengths.max())} bits, "
               f"{book.decode_probes} probe(s), {book.n_nodes} nodes; payload bits a block "
-              f"{int(x['nbits'].sum(-1).float().mean())} (mean); walk and LUT codes bit-exact "
-              f"and lossless, scores max|kernel-plain| = {e:.3e} (tol {SCORES_ATOL})")
+              f"{int(x['nbits'].sum(-1).float().mean())} (mean); walk, LUT and multi-symbol "
+              f"codes bit-exact and lossless, scores max|kernel-plain| = {e:.3e} "
+              f"(tol {SCORES_ATOL})")
         err = max(err, e)
     report["huffman_kernels"] = dict(launches=launches, scores_err=err)
 
@@ -765,11 +776,13 @@ def phase_profile(cfg, params, server, prompts) -> None:
     _print_profile("prefill chunk (64 tokens at 512, 576)", *_profiled(chunk))
 
 
-def _chunk_profile(cfg, params, server, prompt) -> None:
+def _chunk_profile(cfg, params, server, prompt) -> float:
     """One 64-token prefill chunk at positions 512 and 576 of ``prompt``, as
     ``server`` admits it: through a batch-1 view of its arena, on pages
-    from its pool (paged), or through a private batch-1 state (dense)."""
+    from its pool (paged), or through a private batch-1 state (dense).
+    Returns the slot LUT decode's launches a chunk (the two profiled ones)."""
     import torch
+    from repro_torch.kernels import runtime
     from repro_torch.models import model as M
 
     toks = torch.as_tensor(prompt[None, :640], device="cuda")
@@ -794,8 +807,10 @@ def _chunk_profile(cfg, params, server, prompt) -> None:
         pos[0] += T
 
     mode = "paged" if server.paged else "dense"
+    n0 = runtime.launches["huffman_lut_decode"]
     _print_profile(f"{cfg.cache_layout} {mode} prefill chunk (64 tokens at 512, 576)",
                    *_profiled(chunk))
+    return (runtime.launches["huffman_lut_decode"] - n0) / 2
 
 
 def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = False) -> dict:
@@ -867,7 +882,7 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
     if profile:
         if "profile" not in out:
             raise AssertionError("no step had every row live to profile")
-        _chunk_profile(cfg, params, server, prompts[-1])
+        out["lut_per_chunk"] = _chunk_profile(cfg, params, server, prompts[-1])
     del server
     torch.cuda.empty_cache()
     return out
@@ -927,9 +942,13 @@ def phase_huffman_serve(report: dict, cfg, params) -> None:
     from repro_torch.models import model as M
     from repro_torch.serve.scheduler import ServerConfig
 
+    from repro_torch.core import cache as C
+
     hcfg = dataclasses.replace(cfg, cache_layout="huffman")
     n_layers = cfg.n_layers
     specs = M.cache_specs(hcfg, 4096)
+    span = min(max(1, C.BLOCKWISE_SPAN_TOKENS // T), NB)
+    spans = -(-NB // span)  # spans of the chunk path's store scan
     page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim) for s in specs)
     spec = specs[0]
     tile = spec.impl.tile_decode(spec, cfg.resolved_head_dim)
@@ -960,8 +979,18 @@ def phase_huffman_serve(report: dict, cfg, params) -> None:
         if r["per_step"] != {((key, n_layers),)}:
             raise AssertionError(f"huffman {mode} decode step launches {r['per_step']}, "
                                  f"expected {key} x {n_layers} and nothing else")
-        if r["launches"]["huffman_lut_decode"] < 1:
-            raise AssertionError(f"huffman {mode} chunks never ran the slot LUT decode")
+        # every chunk's store scan decodes each span's K and V in one launch
+        want_lut = n_layers * spans
+        chunks = r["stats"]["prefill"]["chunks"]
+        print(f"  slot LUT decode: {r['launches']['huffman_lut_decode']} launches in "
+              f"{chunks} chunks; {r['lut_per_chunk']:g} a profiled chunk ({spans} spans x "
+              f"{n_layers} layers = {want_lut})")
+        if (r["lut_per_chunk"] != want_lut
+                or r["launches"]["huffman_lut_decode"] != want_lut * chunks):
+            raise AssertionError(f"huffman {mode}: slot LUT decode launches "
+                                 f"{r['launches']['huffman_lut_decode']} in {chunks} chunks, "
+                                 f"{r['lut_per_chunk']} a profiled chunk; expected {want_lut} "
+                                 f"a chunk")
         same = sum(int((x == y).all()) for x, y in zip(want_tokens, r["tokens"]))
         n_same = sum(int((x == y).sum()) for x, y in zip(want_tokens, r["tokens"]))
         print(f"  huffman vs packed ({mode}): {n_same}/{len(prompts) * new} tokens, "
@@ -975,7 +1004,7 @@ def phase_huffman_serve(report: dict, cfg, params) -> None:
         out[mode] = r
     report["huffman"] = dict(
         launches_dense=out["dense"]["launches"], launches_paged=out["paged"]["launches"],
-        per_step=n_layers, page_b=page_b)
+        per_step=n_layers, page_b=page_b, lut_per_chunk=out["dense"]["lut_per_chunk"])
 
 
 def fetch_cases() -> dict:
@@ -1063,26 +1092,50 @@ def phase_times(report: dict) -> list[dict]:
     cases = fetch_cases()
     fetch = fetch_times(report, cases)
 
-    # Store, decode-step shape: the [B, 1] slot vector with every row
-    # flushing (a flush step), and with none (the other 63 steps of 64).
+    # Store at the main path's shapes: a decode step's [B, 1] slot vector
+    # with every row flushing (a flush step; the JSON row) and with none (the
+    # other 63 steps of 64: CTAs that return at once, so the method's launch
+    # floor), a chunk's B = 1, and 8 rows flushing into arena pages.
     x = cases["packed", "dense"]
     spec, c = x["spec"], x["c"]
-    kb, vb = c.k_buf[:, :, None], c.v_buf[:, :, None]
-    flush = torch.arange(B, dtype=torch.int32, device="cuda")[:, None] + 10
-    drop = torch.full((B, 1), NB, dtype=torch.int32, device="cuda")
-    stores = (c.k_store, c.k_min, c.k_step, c.v_store, c.v_min, c.v_step)
     skw = dict(bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
                rel_scale_v=spec.rel_scale_v, kivi=False)
-    s_ms = timed(lambda: pack_encode.pack_encode(kb, vb, flush, *stores, **skw))
-    s_drop = timed(lambda: pack_encode.pack_encode(kb, vb, drop, *stores, **skw))
-    s_plain = timed(lambda: pack_encode.pack_encode_plain(kb, vb, flush, *stores, **skw))
-    n_val = 2 * B * HKV * T * D
-    s_bytes = (n_val * 2 + B * 4 + B * HKV * 4 * (spec.words_k(D) + spec.words_v(D))
-               + B * HKV * 2 * 2 * (D + T))
-    s_bound, s_by = bound(s_bytes, 4 * n_val)
-    print(f"  store (decode step, B={B}): kernel {s_ms:.4f} ms with every row flushing, "
-          f"{s_drop:.4f} ms with none, plain {s_plain:.4f} ms, bound {s_bound:.5f} ms "
-          f"({s_by}), {report['per_step']['pack_encode']} launches/decode step")
+    stores = (c.k_store, c.k_min, c.k_step, c.v_store, c.v_min, c.v_step)
+    pc = cases["packed", "paged"]["c"]
+    p_stores = (pc.k_store, pc.k_min, pc.k_step, pc.v_store, pc.v_min, pc.v_step)
+    pb = cases["packed", "paged"]["dense"]
+    live_pages = {int(v) for v in pc.page_tab.reshape(-1).tolist() if v >= 0}
+    free = [pg for pg in range(P_ARENA) if pg not in live_pages][:PB]
+    rows = {
+        "decode step, every row flushing": (c.k_buf, c.v_buf, stores, torch.arange(
+            B, dtype=torch.int32, device="cuda") + 10),
+        "decode step, none flushing (launch floor)": (c.k_buf, c.v_buf, stores, torch.full(
+            (B,), NB, dtype=torch.int32, device="cuda")),
+        "chunk": (c.k_buf[:1], c.v_buf[:1], tuple(t[:1] for t in stores), torch.tensor(
+            [10], dtype=torch.int32, device="cuda")),
+        "8 rows flushing into arena pages": (pb.k_buf, pb.v_buf, p_stores, torch.tensor(
+            free, dtype=torch.int32, device="cuda")),
+    }
+    store = {}
+    for name, (kb, vb, st, slots) in rows.items():
+        kb, vb, slots = kb[:, :, None], vb[:, :, None], slots[:, None]
+        ms = timed(lambda: pack_encode.pack_encode(kb, vb, slots, *st, **skw))
+        nrows = int((slots < st[0].shape[2]).sum())
+        n_val = 2 * nrows * HKV * T * D
+        s_bytes = (n_val * 2 + slots.numel() * 4
+                   + nrows * HKV * (4 * (spec.words_k(D) + spec.words_v(D)) + 2 * 2 * (D + T)))
+        b_ms, b_by = bound(s_bytes, 4 * n_val)
+        plain = None
+        if name.startswith("decode step, every"):
+            plain = timed(lambda: pack_encode.pack_encode_plain(kb, vb, slots, *st, **skw))
+        store[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        print(f"  store ({name}, B={kb.shape[0]}): kernel {ms:.4f} ms"
+              + ("" if plain is None else f", plain {plain:.4f} ms")
+              + (f", bound {b_ms:.6f} ms ({b_by}), {ms / b_ms:.0f}x the bound" if nrows
+                 else ", no block to write"))
+    print(f"  store: {report['per_step']['pack_encode']} launches/decode step, 1 a layer a "
+          f"chunk")
+    s_row = store["decode step, every row flushing"]
     h = huffman_times(report, cases["huffman", "dense"])
     return [
         fetch[0],
@@ -1093,18 +1146,20 @@ def phase_times(report: dict) -> list[dict]:
          "launches": report["launches"]["pack_encode"]
          + report["paged"]["launches"]["pack_encode"],
          "max_abs_err": report["store_err"],
-         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None},
+         "ms": s_row["ms"], "plain_ms": s_row["plain_ms"], "bound_ms": s_row["bound_ms"],
+         "bound_by": s_row["bound_by"], "library_ms": None},
         *fetch[1:],
         *h,
     ]
 
 
 def huffman_times(report: dict, case: dict) -> list[dict]:
-    """Phase 10, huffman part: the three huffman decode kernels at phase
-    11's shapes, and the plain huffman Store of a decode step (on the dense
-    huffman Fetch case's cache)."""
+    """Phase 10, huffman part: the walk kernels at phase 11's shapes, the
+    slot LUT decode at the chunk path's shape and at phase 11's, and the
+    plain huffman Store of a decode step (on the dense huffman Fetch case's
+    cache)."""
     import torch
+    from repro_torch.core.layouts import unpack_u16_pairs
     from repro_torch.kernels import huffman_decode, ops
 
     spec, c = case["spec"], case["c"]
@@ -1147,8 +1202,6 @@ def huffman_times(report: dict, case: dict) -> list[dict]:
     steps = int(bits.sum())
     d_args = (x["payload"], x["nbits"], *x["tables"], D, x["max_bits"])
     s_args = (x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"], x["q"], x["max_bits"])
-    l_args = (x["slots"], x["lut"])
-    l_kw = dict(block_size=T, head_dim=D, hdr_words=x["hdr"], probes=x["book"].decode_probes)
     rows = [
         ("huffman_decode", "src/repro/kernels/huffman_decode.py:56",
          lambda: ops.huffman_decode(*d_args), lambda: huffman_decode.huffman_decode_plain(*d_args),
@@ -1161,13 +1214,6 @@ def huffman_times(report: dict, case: dict) -> list[dict]:
                steps + 4 * nblk * S * D),
          report["huffman_kernels"]["launches"]["huffman_attn_scores"],
          report["huffman_kernels"]["scores_err"]),
-        ("huffman_lut_decode", None,
-         lambda: huffman_decode.huffman_lut_decode(*l_args, **l_kw),
-         lambda: huffman_decode.huffman_lut_decode_plain(*l_args, **l_kw),
-         bound(pay_bytes + 4 * x["hdr"] * nblk + 4 * x["lut"].numel() + nblk * S * D,
-               nblk * S * D * x["book"].decode_probes),
-         hr["launches_dense"]["huffman_lut_decode"] + hr["launches_paged"]["huffman_lut_decode"],
-         0.0),
     ]
     for name, replaces, kern, plain, (b_ms, b_by), launches, err in rows:
         k_ms = timed(kern)
@@ -1179,6 +1225,51 @@ def huffman_times(report: dict, case: dict) -> list[dict]:
                         "source": "src/repro_torch/csrc/huffman_decode.cu", "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": pl_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # The slot LUT decode as the chunk path calls it: one span (16 slots) of
+    # one row's 4 heads, K and V in one launch (the JSON row); and the 256 K
+    # slots of phase 11 through the single entry, as timed since PR 13.
+    # Bytes: the headers, the payload words the streams fill, the LUTs once
+    # and the codes out; operations: one a probe of the LUT.
+    def lut_bound(tensors):
+        nbytes = ops_ = 0
+        for slots, book, hdr in tensors:
+            bits = unpack_u16_pairs(slots[:, :hdr], T).sum(-1)
+            nbytes += (4 * int((hdr + (bits + 31) // 32).sum()) + 4 * book.decode_lut().size
+                       + slots.shape[0] * T * D)
+            ops_ += slots.shape[0] * T * D * book.decode_probes
+        return bound(nbytes, ops_)
+
+    books = (spec.impl.book_k(spec), spec.impl.book_v(spec))
+    span = [spec.impl._slot_args(spec, st[3:4, :, :16], D, book)
+            for st, book in zip((c.k_store, c.v_store), books)]
+    kw = dict(block_size=T, head_dim=D)
+    kv = huffman_decode.huffman_lut_decode_kv(*span, **kw)
+    kv_plain = [huffman_decode.huffman_lut_decode_plain(a[0], a[1], hdr_words=a[3],
+                                                        probes=a[4], **kw) for a in span]
+    lut_err = max(float((o.int() - p.int()).abs().max()) for o, p in zip(kv, kv_plain))
+    if not all(torch.equal(o, p) for o, p in zip(kv, kv_plain)):
+        raise AssertionError(f"huffman_lut_decode_kv at the chunk call: K and V codes differ "
+                             f"from the plain version (max |err| {lut_err})")
+    k_ms = timed(lambda: huffman_decode.huffman_lut_decode_kv(*span, **kw))
+    pl_ms = timed(lambda: [huffman_decode.huffman_lut_decode_plain(
+        a[0], a[1], hdr_words=a[3], probes=a[4], **kw) for a in span], iters=3, warmup=1)
+    b_ms, b_by = lut_bound([(a[0], book, a[3]) for a, book in zip(span, books)])
+    print(f"  huffman_lut_decode (chunk path: 64 K + 64 V slots, one launch): K and V codes "
+          f"== plain; kernel {k_ms:.4f} ms, plain {pl_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}), {k_ms / b_ms:.0f}x the bound; {hr['lut_per_chunk']:g} launches a chunk")
+    one = spec.impl._slot_args(spec, x["slots"][None, None], D, x["book"])
+    one_ms = timed(lambda: huffman_decode.huffman_lut_decode(
+        one[0], one[1], multi=one[2], hdr_words=one[3], probes=one[4], **kw))
+    one_b, one_by = lut_bound([(one[0], x["book"], one[3])])
+    print(f"  huffman_lut_decode (NBLK={nblk} K slots, single entry): kernel {one_ms:.4f} ms, "
+          f"bound {one_b:.6f} ms ({one_by})")
+    entries.append({"name": "huffman_lut_decode", "route": "cuda",
+                    "source": "src/repro_torch/csrc/huffman_decode.cu", "replaces": None,
+                    "launches": hr["launches_dense"]["huffman_lut_decode"]
+                    + hr["launches_paged"]["huffman_lut_decode"], "max_abs_err": lut_err,
+                    "ms": k_ms, "plain_ms": pl_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
     return entries
 
 

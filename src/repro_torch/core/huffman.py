@@ -34,6 +34,10 @@ N_SYMBOLS = 256
 MAX_CODE_LEN = 16
 # Stream bits consumed per LUT probe of the chunked direct-lookup decoder.
 LUT_CHUNK_BITS = 8
+# Stream bits one probe of the slot decode kernel's multi-symbol table
+# peeks, and the most codewords an entry holds (build_multi_lut).
+MULTI_PEEK_BITS = 12
+MULTI_MAX_SYMBOLS = 4
 MAX_NODES = 2 * N_SYMBOLS  # decode tables are padded to this many nodes
 
 _U32 = 0xFFFFFFFF
@@ -140,6 +144,14 @@ class CodeBook:
         so a decode step copies nothing from the host."""
         return self._per_device("lut", device,
                                 lambda dev: torch.from_numpy(self.decode_lut()).to(dev))
+
+    def device_multi_lut(self, device) -> torch.Tensor | None:
+        """``build_multi_lut`` flat (int32 [2 * 2**MULTI_PEEK_BITS]) on
+        ``device``, one copy per device; None where the book does not fit it."""
+        def make(dev):
+            tab = build_multi_lut(self)
+            return None if tab is None else torch.from_numpy(tab.reshape(-1)).to(dev)
+        return self._per_device("multi", device, make)
 
     def encode_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """(codes_lsb, lengths) as int64 [256] tensors on ``device``, one copy
@@ -260,6 +272,49 @@ def build_decode_lut(book: CodeBook) -> np.ndarray:
     nxt_state = np.where(emitted, 0, idx)  # reset-to-root at leaves
     return (sym | (consumed << 8) | (emitted.astype(np.int32) << 12)
             | (nxt_state << 16)).astype(np.int32)
+
+
+def build_multi_lut(book: CodeBook) -> np.ndarray | None:
+    """Multi-symbol decode table ``[2**MULTI_PEEK_BITS, 2]`` int32 (host
+    side, once), the port's own: the slot decode kernel's probe loop.
+
+    Entry ``c`` decodes, from the root, every whole codeword that the
+    ``MULTI_PEEK_BITS`` bits of ``c`` (LSB-first) hold, at most
+    ``MULTI_MAX_SYMBOLS``:
+
+        word 0   symbol k at bits 8k .. 8k+7
+        word 1   bits 0..2 count (>= 1); bits 4+4k .. 7+4k the bits consumed
+                 through symbol k; bits 20..23 the bits consumed in all
+
+    The symbols are the tree's, in stream order, so the decode equals the
+    chunked LUT's.  Only for a complete tree (Kraft sum 1, two or more
+    symbols) whose every code fits the peek: then every entry holds at least
+    one codeword.  Otherwise None, and the decode keeps the LUT's probes.
+    """
+    ln = book.lengths[book.lengths > 0].astype(np.int64)
+    if (len(ln) < 2 or ln.max() > MULTI_PEEK_BITS
+            or (1 << MAX_CODE_LEN) != int((1 << (MAX_CODE_LEN - ln)).sum())):
+        return None
+    n = 1 << MULTI_PEEK_BITS
+    rows = np.arange(n)
+    idx = np.zeros(n, np.int64)
+    count = np.zeros(n, np.int64)
+    syms = np.zeros((n, MULTI_MAX_SYMBOLS), np.int64)
+    ends = np.zeros((n, MULTI_MAX_SYMBOLS), np.int64)
+    for b in range(MULTI_PEEK_BITS):
+        nxt = book.children[idx, (rows >> b) & 1]
+        leaf = (book.is_symbol[nxt] == 1) & (count < MULTI_MAX_SYMBOLS)
+        k = np.minimum(count, MULTI_MAX_SYMBOLS - 1)
+        syms[rows, k] = np.where(leaf, book.symbols[nxt], syms[rows, k])
+        ends[rows, k] = np.where(leaf, b + 1, ends[rows, k])
+        count += leaf
+        idx = np.where(leaf, 0, nxt)
+    assert count.min() >= 1
+    meta = count | (ends[rows, count - 1] << 20)
+    for k in range(MULTI_MAX_SYMBOLS):
+        meta |= ends[:, k] << (4 + 4 * k)
+    sym_word = (syms << (8 * np.arange(MULTI_MAX_SYMBOLS))).sum(-1)
+    return np.stack([sym_word, meta], -1).astype(np.uint32).view(np.int32)
 
 
 def histogram(codes: torch.Tensor) -> torch.Tensor:

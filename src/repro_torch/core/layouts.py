@@ -367,8 +367,8 @@ class HuffmanLayout(PackedLayout):
     The Store is plain PyTorch, as in the reference (quantize, then
     ``encode_block_torch``, then ``scatter_slots``).  The Fetch kernel decodes
     whole slots in shared memory with the chunked LUT (``tile_decode``); the
-    blockwise chunk path decodes a span of slots with the slot LUT decode
-    kernel (``kernels.huffman_decode.huffman_lut_decode``).
+    blockwise chunk path decodes a span's K and V slots in one launch of the
+    slot LUT decode kernel (``kernels.huffman_decode.huffman_lut_decode_kv``).
     """
 
     supports_fused = True
@@ -405,18 +405,26 @@ class HuffmanLayout(PackedLayout):
             codes, *book.encode_tables(codes.device), pay_w)
         return torch.cat([pack_u16_pairs(nbits), payload], dim=-1)
 
+    def _slot_args(self, spec, store: torch.Tensor, head_dim: int, book: huffman.CodeBook):
+        """What the slot decode takes of slots [B, H, C, W] under ``book``:
+        (slots [B*H*C, W], LUT, multi-symbol table or None, header words,
+        probes)."""
+        dev = store.device
+        return (store.reshape(-1, store.shape[-1]).contiguous(), book.device_lut(dev),
+                book.device_multi_lut(dev), self._slot_words(spec, head_dim, book)[0],
+                book.decode_probes)
+
     def _decode(self, spec, store: torch.Tensor, head_dim: int,
                 book: huffman.CodeBook) -> torch.Tensor:
         """slots int32 [B, H, C, W] -> codes u8 [B, H, C, T, D]: the slot LUT
         decode kernel on the card, its plain version on the CPU."""
         from repro_torch.kernels import huffman_decode  # late: kernels import core
 
-        B, H, C, W = store.shape
+        slots, lut, multi, hdr, probes = self._slot_args(spec, store, head_dim, book)
         codes = huffman_decode.huffman_lut_decode(
-            store.reshape(B * H * C, W).contiguous(), book.device_lut(store.device),
-            block_size=spec.block_size, head_dim=head_dim,
-            hdr_words=self._slot_words(spec, head_dim, book)[0], probes=book.decode_probes)
-        return codes.reshape(B, H, C, spec.block_size, head_dim)
+            slots, lut, block_size=spec.block_size, head_dim=head_dim, hdr_words=hdr,
+            probes=probes, multi=multi)
+        return codes.reshape(*store.shape[:3], spec.block_size, head_dim)
 
     def write_blocks(self, spec, cache, slots, kb, vb) -> None:
         kc, kmn, kst = quant_block_minmax(kb.to(torch.float32), spec.rel_scale_k,
@@ -431,10 +439,17 @@ class HuffmanLayout(PackedLayout):
             scatter_slots(store, slots, val)
 
     def decode_span(self, spec, cache, start, count):
+        """K and V of the span in one slot-decode launch."""
+        from repro_torch.kernels import huffman_decode  # late: kernels import core
+
         sl = slice(start, start + count)
-        D = cache.head_dim
-        kc = self._decode(spec, cache.k_store[:, :, sl], D, self.book_k(spec))
-        vc = self._decode(spec, cache.v_store[:, :, sl], D, self.book_v(spec))
+        D, T = cache.head_dim, spec.block_size
+        ks, vs = cache.k_store[:, :, sl], cache.v_store[:, :, sl]
+        kc, vc = huffman_decode.huffman_lut_decode_kv(
+            self._slot_args(spec, ks, D, self.book_k(spec)),
+            self._slot_args(spec, vs, D, self.book_v(spec)), block_size=T, head_dim=D)
+        kc = kc.reshape(*ks.shape[:3], T, D)
+        vc = vc.reshape(*vs.shape[:3], T, D)
         return (kc.to(torch.float32), cache.k_min[:, :, sl], cache.k_step[:, :, sl],
                 vc.to(torch.float32), cache.v_min[:, :, sl], cache.v_step[:, :, sl])
 

@@ -96,6 +96,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "huffman.cuh"
 
 // The ring slots a CTA takes.  chip_smoke.py --split-sweep builds variants
@@ -182,30 +183,6 @@ __host__ __device__ inline Smem smem_plan(int kind, int D, int T, int Wk, int Wv
 
 // --- copies --------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy the 16-byte granules that cover [src, src + nbytes) to dst, so that
-// byte src lands at dst + (src % 16) (see `landed`).
-__device__ __forceinline__ void stage_run(uint8_t* dst, const void* src, int nbytes) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t lo = a & ~uintptr_t(15);
-  const int chunks = static_cast<int>((((a + nbytes + 15) & ~uintptr_t(15)) - lo) >> 4);
-  for (int i = threadIdx.x; i < chunks; i += kThreads)
-    cp_async16(dst + 16 * i, reinterpret_cast<const void*>(lo + 16 * i));
-}
-template <typename E>
-__device__ __forceinline__ const E* landed(const uint8_t* dst, const void* src) {
-  return reinterpret_cast<const E*>(dst + (reinterpret_cast<uintptr_t>(src) & 15));
-}
-
 // A bf16 [T, D] tile (16-byte aligned) into rows of stride D + 8.
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int T,
                                            int D) {
@@ -247,12 +224,12 @@ __device__ __forceinline__ void issue_block(const Params& p, int kind, const Sme
     stage_tile(kt, static_cast<const __nv_bfloat16*>(s.kw), p.T, p.D);
     stage_tile(kt + L.raw_tile / 2, static_cast<const __nv_bfloat16*>(s.vw), p.T, p.D);
   } else {
-    stage_run(stage + L.kw, s.kw, 4 * p.Wk);
-    stage_run(stage + L.vw, s.vw, 4 * p.Wv);
-    stage_run(stage + L.kmn, s.kmn, 2 * p.D);
-    stage_run(stage + L.kst, s.kst, 2 * p.D);
-    stage_run(stage + L.vmn, s.vmn, 2 * p.T);
-    stage_run(stage + L.vst, s.vst, 2 * p.T);
+    stage_run(stage + L.kw, s.kw, 4 * p.Wk, kThreads);
+    stage_run(stage + L.vw, s.vw, 4 * p.Wv, kThreads);
+    stage_run(stage + L.kmn, s.kmn, 2 * p.D, kThreads);
+    stage_run(stage + L.kst, s.kst, 2 * p.D, kThreads);
+    stage_run(stage + L.vmn, s.vmn, 2 * p.T, kThreads);
+    stage_run(stage + L.vst, s.vst, 2 * p.T, kThreads);
   }
   cp_async_commit();
 }

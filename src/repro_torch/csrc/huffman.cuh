@@ -14,6 +14,10 @@
 // Each symbol takes `probes` (1 or 2) probes; a symbol whose codeword would
 // run past its stream's budget decodes to 0 (the `pos <= ends` mask), and
 // word reads clamp to the last payload word.
+//
+// multi_decode_stream gives the same codes from the port's multi-symbol
+// table (src/repro_torch/core/huffman.py `build_multi_lut`), for books whose
+// tree is complete and whose every code fits its 12-bit peek.
 
 #pragma once
 
@@ -22,6 +26,8 @@
 namespace huff {
 
 constexpr int kChunkBits = 8;
+constexpr int kMultiPeekBits = 12;  // huffman.py MULTI_PEEK_BITS
+constexpr int kMultiMaxSymbols = 4;  // huffman.py MULTI_MAX_SYMBOLS
 
 // Bit count of stream s from the header words.
 __device__ __forceinline__ int stream_bits(const uint32_t* hdr, int s) {
@@ -91,6 +97,54 @@ __device__ __forceinline__ void lut_decode_stream(const uint32_t* payload, int n
       }
     }
     emit(j, pos <= end ? sym : 0);
+  }
+}
+
+// Decode n symbols of one stream (bits [pos, end)) into row[0 .. n-1] with
+// the multi-symbol table: a probe peeks kMultiPeekBits stream bits and emits
+// every whole codeword they hold (entry: symbols at bits 8k of .x; .y holds
+// the count, the bits consumed through each symbol at bits 4 + 4k, and the
+// bits consumed in all at bits 20..23).  The codewords are the ones the
+// chunked LUT decodes, one by one, from the same bits: the window below
+// (two words in registers, clamped to the last payload word, and the word
+// after them loaded ahead) reads the bits lut_decode_stream reads, and a
+// symbol whose last bit passes end is 0.  row needs kMultiMaxSymbols - 1
+// bytes of room past n.  The window moves by selects, the stores are
+// predicated (a branch masks symbols only where the budget may end inside
+// the probe), and the next probe's read is issued before this probe's
+// stores, so they overlap its latency.
+__device__ __forceinline__ void multi_decode_stream(const uint32_t* payload, int n_words, int pos,
+                                                    int end, const uint2* tab, int n,
+                                                    uint8_t* row) {
+  constexpr uint32_t kMask = (1u << kMultiPeekBits) - 1u;
+  const int last = n_words - 1;
+  int w = pos >> 5;
+  uint32_t b = static_cast<uint32_t>(pos & 31);
+  uint32_t lo = payload[min(w, last)], hi = payload[min(w + 1, last)];
+  uint32_t nx = payload[min(w + 2, last)];
+  uint2 e = tab[__funnelshift_r(lo, hi, b) & kMask];
+  for (int j = 0; j < n;) {
+    const uint32_t adv = e.y >> 20;  // <= 12, so the window moves at most one word
+    const bool cross = b + adv >= 32;
+    b = (b + adv) & 31u;
+    lo = cross ? hi : lo;
+    hi = cross ? nx : hi;
+    w += cross;
+    nx = payload[min(w + 2, last)];
+    const uint2 next = tab[__funnelshift_r(lo, hi, b) & kMask];
+    const int cnt = static_cast<int>(e.y & 7u);
+    uint32_t sym = e.x;
+    if (end - pos < kMultiPeekBits) {  // the budget may end inside this probe
+#pragma unroll
+      for (int k = 0; k < kMultiMaxSymbols; ++k)
+        if (pos + static_cast<int>((e.y >> (4 + 4 * k)) & 15u) > end) sym &= ~(0xFFu << (8 * k));
+    }
+#pragma unroll
+    for (int k = 0; k < kMultiMaxSymbols; ++k)
+      if (k < cnt) row[j + k] = static_cast<uint8_t>(sym >> (8 * k));
+    j += cnt;
+    pos += static_cast<int>(adv);
+    e = next;
   }
 }
 

@@ -7,8 +7,11 @@ versions.
 * ``huffman_attn_scores`` replaces ``_fused_scores_kernel``: the same walk,
   then the K dequant and the scores ``(K.q) * scale``.
 * ``huffman_lut_decode`` has no Pallas counterpart: it decodes whole cache
-  slots (u16 header + payload) with the chunked LUT, for the huffman
-  layout's blockwise chunk path (``HuffmanLayout.decode_span``).
+  slots (u16 header + payload) into the chunked LUT's codes, for the huffman
+  layout's blockwise chunk path; ``huffman_lut_decode_kv`` decodes a span's
+  K and V slots in one launch (``HuffmanLayout.decode_span``).  Given a
+  book's multi-symbol table (``CodeBook.device_multi_lut``) the kernel reads
+  it in place of the LUT: the same codes in fewer probes.
 
 Each wrapper takes its plain version (``kernels.ref`` and ``core.huffman``)
 only for CPU tensors; for CUDA tensors it launches its kernel or raises.  Words are
@@ -32,7 +35,7 @@ NAME = "huffman_decode"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _WALK_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P]
 _SCORES_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F, _P]
-_LUT_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
+_LUT_ARGTYPES = ([_P] * 4 + [_I] * 4) * 2 + [_I] * 2 + [_P]
 
 
 def huffman_attn_scores_plain(payload, nbits, children, is_symbol, symbols, k_min, k_step, q,
@@ -108,27 +111,60 @@ def huffman_attn_scores(payload, nbits, children, is_symbol, symbols, k_min, k_s
 
 
 def huffman_lut_decode(slots, lut, *, block_size: int, head_dim: int, hdr_words: int,
-                       probes: int) -> torch.Tensor:
+                       probes: int, multi=None) -> torch.Tensor:
     """Decode whole huffman slots: slots int32 [N, hdr + payload] (the u16
     bit counts of ``block_size`` streams, then the payload), the flat LUT
-    int32 -> codes uint8 [N, block_size, head_dim]."""
+    int32 -> codes uint8 [N, block_size, head_dim].  ``multi``: the book's
+    multi-symbol table, or None (the kernel then probes the LUT)."""
     if slots.device.type == "cpu":
         return huffman_lut_decode_plain(slots, lut, block_size=block_size, head_dim=head_dim,
                                         hdr_words=hdr_words, probes=probes)
+    return _lut_launch(((slots, lut, multi, hdr_words, probes),), block_size, head_dim)[0]
+
+
+def huffman_lut_decode_kv(k, v, *, block_size: int, head_dim: int):
+    """The slot decode of K and V in one launch: ``k`` and ``v`` are each
+    ``(slots, lut, multi, hdr_words, probes)`` as ``huffman_lut_decode``
+    takes them -> (K codes, V codes)."""
+    if k[0].device.type == "cpu":
+        return tuple(huffman_lut_decode_plain(sl, lut, block_size=block_size, head_dim=head_dim,
+                                              hdr_words=hw, probes=pr)
+                     for sl, lut, _, hw, pr in (k, v))
+    return _lut_launch((k, v), block_size, head_dim)
+
+
+def _lut_launch(tensors, T: int, D: int) -> tuple:
+    """One slot-decode launch over 1 or 2 (slots, lut, multi, hdr_words,
+    probes) tensors; returns their codes."""
     name = "huffman_lut_decode"
-    dev = slots.device
+    dev = tensors[0][0].device
     runtime.require(dev.type == "cuda", f"{name}: slots on {dev}")
-    N, W = slots.shape
-    runtime.require(hdr_words == (block_size + 1) // 2 and W > hdr_words and probes in (1, 2),
-                    f"{name}: {W} slot words, {hdr_words} header words for {block_size} "
-                    f"streams, {probes} probes")
-    runtime.check_tensor(name, "slots", slots, torch.int32, (N, W), dev)
-    runtime.check_tensor(name, "lut", lut, torch.int32, (lut.numel(),), dev)
-    runtime.require(lut.numel() % (1 << huffman.LUT_CHUNK_BITS) == 0,
-                    f"{name}: the LUT has {lut.numel()} entries, not whole 256-entry rows")
-    out = torch.empty((N, block_size, head_dim), dtype=torch.uint8, device=dev)
-    if N:
-        runtime.launch(NAME, _LUT_ARGTYPES, slots.data_ptr(), lut.data_ptr(), out.data_ptr(),
-                       N, W, hdr_words, block_size, head_dim, probes, runtime.stream_ptr(dev),
-                       count=name, entry=f"{name}_launch")
-    return out
+    runtime.require(1 <= T <= 512 and D >= 4 and D % 4 == 0,
+                    f"{name}: block_size must be in [1, 512] and head_dim a multiple of 4, got "
+                    f"{T}, {D}")
+    flat, outs = [], []
+    for slots, lut, multi, hdr_words, probes in tensors:
+        N, W = slots.shape
+        runtime.require(hdr_words == (T + 1) // 2 and W > hdr_words and probes in (1, 2),
+                        f"{name}: {W} slot words, {hdr_words} header words for {T} streams, "
+                        f"{probes} probes")
+        runtime.check_tensor(name, "slots", slots, torch.int32, (N, W), dev)
+        runtime.check_tensor(name, "lut", lut, torch.int32, (lut.numel(),), dev)
+        runtime.require(lut.numel() % (1 << huffman.LUT_CHUNK_BITS) == 0,
+                        f"{name}: the LUT has {lut.numel()} entries, not whole 256-entry rows")
+        if multi is not None:
+            runtime.check_tensor(name, "multi", multi, torch.int32,
+                                 (2 << huffman.MULTI_PEEK_BITS,), dev)
+            # the kernel stages the table with 16-byte copies
+            runtime.require(multi.data_ptr() % 16 == 0,
+                            f"{name}: the multi-symbol table must be 16-byte aligned")
+        out = torch.empty((N, T, D), dtype=torch.uint8, device=dev)
+        outs.append(out)
+        flat += [slots.data_ptr(), lut.data_ptr(), None if multi is None else multi.data_ptr(),
+                 out.data_ptr(), N, W, hdr_words, probes]
+    if len(tensors) == 1:
+        flat += [None, None, None, None, 0, 1, 0, 1]
+    if sum(t[0].shape[0] for t in tensors):
+        runtime.launch(NAME, _LUT_ARGTYPES, *flat, T, D, runtime.stream_ptr(dev), count=name,
+                       entry=f"{name}_launch")
+    return tuple(outs)

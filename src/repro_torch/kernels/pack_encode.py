@@ -74,12 +74,13 @@ def quant_pack(x: torch.Tensor, *, rel_scale: float, bits: int, token_wise: bool
         return words, mn.to(torch.bfloat16), st.to(torch.bfloat16)
     cpw = 32 // bits
     U = T if token_wise else D
-    words = torch.empty((NBLK, 1, 1, (T * D + cpw - 1) // cpw), dtype=torch.int32,
+    # one row of NBLK blocks into ring slots 0 .. NBLK-1
+    words = torch.empty((1, 1, NBLK, (T * D + cpw - 1) // cpw), dtype=torch.int32,
                         device=x.device)
-    mn = torch.empty((NBLK, 1, 1, U), dtype=torch.bfloat16, device=x.device)
+    mn = torch.empty((1, 1, NBLK, U), dtype=torch.bfloat16, device=x.device)
     st = torch.empty_like(mn)
-    slots = torch.zeros((NBLK, 1), dtype=torch.int32, device=x.device)
-    _launch(((x.reshape(NBLK, 1, 1, T, D), words, mn, st, bits, rel_scale, kivi,
+    slots = torch.arange(NBLK, dtype=torch.int32, device=x.device)[None]
+    _launch(((x.reshape(1, 1, NBLK, T, D), words, mn, st, bits, rel_scale, kivi,
               token_wise),), slots)
     return words.reshape(NBLK, -1), mn.reshape(NBLK, U), st.reshape(NBLK, U)
 
@@ -95,6 +96,11 @@ def _launch(tensors, slots) -> None:
     B, H, n, T, D = x0.shape
     Bs, NB = tensors[0][1].shape[0], tensors[0][1].shape[2]
     runtime.require(Bs in (B, 1), f"{NAME}: store batch extent {Bs} is neither {B} nor 1")
+    elem = x0.element_size()
+    runtime.require(D % 8 == 0 and D * elem <= 1024 and 1 <= T and T * D < 1 << 22,
+                    f"{NAME}: head_dim must be a multiple of 8 of at most {1024 // elem} "
+                    f"values and a block under 2^22 values, got T={T}, D={D}")
+    runtime.require(B < 1 << 16 and H < 1 << 16, f"{NAME}: {B} rows, {H} heads")
     runtime.check_tensor(NAME, "slots", slots, torch.int32, (B, n), dev)
     flat = []
     for x, words, mn, st, bits, rel, kivi, tok in tensors:
@@ -102,6 +108,8 @@ def _launch(tensors, slots) -> None:
         cpw = 32 // bits
         U = T if tok else D
         runtime.check_tensor(NAME, "blocks", x, x0.dtype, (B, H, n, T, D), dev)
+        runtime.require(x.data_ptr() % 16 == 0,
+                        f"{NAME}: blocks must start on a 16-byte boundary (16-byte loads)")
         runtime.check_tensor(NAME, "words", words, torch.int32,
                              (Bs, H, NB, (T * D + cpw - 1) // cpw), dev)
         runtime.check_tensor(NAME, "mn", mn, torch.bfloat16, (Bs, H, NB, U), dev)

@@ -369,3 +369,110 @@ def test_huffman_server_equals_packed_on_card(cuda):
                 assert runtime.launches[key] > 0 and runtime.launches["huffman_lut_decode"] > 0
                 assert runtime.launches["fused_kv_attn"] == runtime.launches["pack_encode"] == 0
     assert toks["huffman", "dense"] == toks["packed", "dense"] == toks["huffman", "paged"]
+
+
+def _book(name):
+    """The layout's default K and V books; a 2-probe book with 11-bit codes
+    (the multi-symbol table still fits); the skewed 2-probe book (16-bit
+    codes: no table, the kernel probes the LUT)."""
+    if name in ("K", "V"):
+        return TL.default_codebook(21 if name == "K" else 8)
+    hist = np.zeros(256, np.int64)
+    hist[:21] = np.logspace(0, 3, 21)[::-1].astype(np.int64)
+    return TH.build_codebook(hist) if name == "mid" else _skewed_book()
+
+
+def _edge_slots(book, T, D, device, nblk=6, seed=0):
+    """Slots of random codes under ``book`` whose headers hold an empty
+    stream, a budget that cuts a codeword and a budget past the payload."""
+    spec = TC.CacheSpec(layout="huffman", block_size=T, max_seq=16 * T)
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = int((book.lengths > 0).sum())
+    codes = torch.randint(0, n, (nblk, T, D), generator=g, device=device).to(torch.uint8)
+    slots = spec.impl._encode(spec, codes, book)
+    hdr = spec.impl._slot_words(spec, D, book)[0]
+    nbits = TL.unpack_u16_pairs(slots[:, :hdr], T)
+    nbits[0, T // 2] = 0
+    nbits[1, -1] = max(int(nbits[1, -1]) - 2, 1)
+    nbits[2, -1] += 30000
+    slots[:, :hdr] = TL.pack_u16_pairs(nbits)
+    return codes, slots, hdr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D", [(64, 128), (8, 24)])
+@pytest.mark.parametrize("name", ["K", "V", "mid", "skewed"])
+def test_slot_decode_single_and_joint_on_card(name, T, D, cuda):
+    """The slot LUT decode kernel through the book's multi-symbol table
+    (where it has one) and through its LUT probes, alone and in one launch
+    with a second tensor: equal to the plain version on slots with edge
+    streams, and lossless on the untouched ones."""
+    book, other = _book(name), _book("V")
+    codes, slots, hdr = _edge_slots(book, T, D, cuda)
+    o_codes, o_slots, o_hdr = _edge_slots(other, T, D, cuda, nblk=5, seed=1)
+    kw = dict(block_size=T, head_dim=D)
+    want = huffman_decode.huffman_lut_decode_plain(slots, book.device_lut(cuda), hdr_words=hdr,
+                                                   probes=book.decode_probes, **kw)
+    o_want = huffman_decode.huffman_lut_decode_plain(
+        o_slots, other.device_lut(cuda), hdr_words=o_hdr, probes=other.decode_probes, **kw)
+    assert torch.equal(want[3:], codes[3:])
+    multi = book.device_multi_lut(cuda)
+    assert (multi is None) == (name == "skewed")
+    runtime.reset_launches()
+    for m in {None, multi} if multi is not None else (None,):
+        got = huffman_decode.huffman_lut_decode(slots, book.device_lut(cuda), hdr_words=hdr,
+                                                probes=book.decode_probes, multi=m, **kw)
+        assert torch.equal(got, want), m is None
+    a = (slots, book.device_lut(cuda), multi, hdr, book.decode_probes)
+    b = (o_slots, other.device_lut(cuda), other.device_multi_lut(cuda), o_hdr,
+         other.decode_probes)
+    got_a, got_b = huffman_decode.huffman_lut_decode_kv(a, b, **kw)
+    assert torch.equal(got_a, want) and torch.equal(got_b, o_want)
+    assert runtime.launches["huffman_lut_decode"] == (3 if multi is not None else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D", [(8, 16), (16, 24), (64, 64), (64, 128)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kivi", [False, True])
+def test_store_kernel_bit_exact_over_widths_on_card(T, D, dtype, kivi, cuda):
+    """The Store kernel against ``pack_encode_plain`` for K and V code widths
+    of 1 to 8 bits (codes a word dividing T*D or not), into per-row rings and
+    into a shared arena, with constant blocks (step 0): words and bf16 scales
+    bit-exact, and dropped rows (no flush, slot -1) leave the stores as they
+    were."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(T * D)
+    B, H, n = 3, 2, 2
+    for bits in range(1, 9):
+        bits_v = 9 - bits
+        kb = torch.randn((B, H, n, T, D), generator=g, device=cuda).to(dt)
+        vb = (3 * torch.randn((B, H, n, T, D), generator=g, device=cuda)).to(dt)
+        kb[0, 1, 0] = 0.75  # constant blocks: step 0
+        vb[2, 0, 1] = -1.5
+        for Bs, NB in ((B, 5), (1, 8)):  # rings; the arena (distinct pages)
+            slots = torch.tensor([[1, 3], [NB, -1], [4, 0]] if Bs == B else
+                                 [[1, 3], [NB, -1], [5, 0]], dtype=torch.int32, device=cuda)
+            cpw_k, cpw_v = 32 // bits, 32 // bits_v
+            shapes = ((Bs, H, NB, -(-T * D // cpw_k)), (Bs, H, NB, D), (Bs, H, NB, D),
+                      (Bs, H, NB, -(-T * D // cpw_v)), (Bs, H, NB, T), (Bs, H, NB, T))
+            old = [torch.randint(-2**31, 2**31 - 1, s, generator=g, device=cuda,
+                                 dtype=torch.int32) if i % 3 == 0 else
+                   torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+                   for i, s in enumerate(shapes)]
+            a = [t.clone() for t in old]
+            b = [t.clone() for t in old]
+            kw = dict(bits_k=bits, bits_v=bits_v, rel_scale_k=1.0 / (2**bits - 1),
+                      rel_scale_v=0.7 / (2**bits_v - 1), kivi=kivi)
+            pack_encode.pack_encode(kb, vb, slots, *a, **kw)
+            pack_encode.pack_encode_plain(kb, vb, slots, *b, **kw)
+            written = {(0 if Bs == 1 else r, int(s)) for r, row in enumerate(slots.tolist())
+                       for s in row if 0 <= s < NB}
+            for i, (x, y, o) in enumerate(zip(a, b, old)):
+                if x.dtype == torch.bfloat16:
+                    x, y, o = x.view(torch.int16), y.view(torch.int16), o.view(torch.int16)
+                assert torch.equal(x, y), (bits, Bs, i)
+                for r in range(Bs):
+                    for s in range(NB):
+                        if (r, s) not in written:
+                            assert torch.equal(x[r, :, s], o[r, :, s]), (bits, Bs, i, r, s)
