@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --split-sweep   # phases 1, 2, then the Fetch at S = 1, 2, 4
+    python3 chip_smoke.py --walk-parent DIR   # phases 1, 2, then DIR's walk kernels vs these
 
 Phases, in the order they run (11 after 4, 12 after 9, times last); any
 failure exits non-zero before the result lines:
@@ -35,7 +36,9 @@ failure exits non-zero before the result lines:
    ``huffman_attn_scores`` once each per book and the slot LUT decode twice
    (with the book's multi-symbol table and with the LUT alone), with the
    counts zeroed just before; codes bit-exact against the plain versions and
-   equal to the quantized codes, scores within SCORES_ATOL.
+   equal to the quantized codes, scores within SCORES_ATOL.  Then both walk
+   kernels on ``walk_edge_cases`` (S of 1, 40, 64 and 100; edge books and
+   streams) against their plain versions, by the same rule.
 5. Serve, dense: a Server on full-width Yi-6B (random weights from a seed,
    float32, all 32 layers; built once and shared by every serving phase), 4
    requests of several hundred to 1000 prompt tokens, 32 new tokens each,
@@ -82,16 +85,20 @@ failure exits non-zero before the result lines:
    method's launch floor), a chunk's (B=1) and 8 rows into arena pages; the
    slot LUT decode at the chunk path's shape (one span of one row, K and V in
    one launch) and at phase 11's 256 K slots; the walk kernels at phase 11's
-   shapes.
+   shapes, with the default K book (the JSON rows) and the skewed book.
 
 The last three lines are the card (nvidia-smi), a JSON line with one entry
 per kernel, and ``{"ok": true, "device": {...}}``.  ``--split-sweep`` builds
 the Fetch library with 1, 2 and 4 ring slots a CTA (``-DFETCH_SPLIT_BLOCKS``)
 and times each on phase 10's Fetch cases, in the order 1, 2, 4, 4, 2, 1.
+``--walk-parent DIR`` builds the walk kernels of the checkout at DIR (an
+earlier commit, unpacked there) and times them against this tree's on phase
+11's inputs, in the order parent, this tree, this tree, parent.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -489,6 +496,75 @@ def huffman_inputs(seed: int = 60) -> list[dict]:
     return out
 
 
+def walk_edge_cases(device, streams=(1, 40, 64), seed: int = 7) -> list[dict]:
+    """Edge cases of the walk kernels (phase 11, and the tests on the CPU and
+    the card): the layout's default K and V books, a skewed book whose codes
+    run to 16 bits (past the kernels' root-table peek), a one-symbol book,
+    and the K book's tables with one child rewired to the root; a zero-bit
+    stream, max_bits below nbits, budgets past the payload (reads clamp to
+    the last word), random words (bit 31 set in half of them), S of each of
+    ``streams``, more symbols a stream than L, and an L that is not a
+    multiple of 4 (byte rows out, zero score factors past L).  Each case:
+    payload int32 [NBLK, W], nbits int32 [NBLK, S], the tree tables, L,
+    max_bits, and k_min / k_step f32 [NBLK, L], q f32 [L] and a scale for
+    the scores."""
+    import torch
+    from repro_torch.core import huffman, layouts
+
+    rng = np.random.default_rng(seed)
+    skew = np.zeros(huffman.N_SYMBOLS, np.int64)
+    skew[:21] = np.logspace(0, 9, 21)[::-1].astype(np.int64)
+    one = np.zeros(huffman.N_SYMBOLS, np.int64)
+    one[7] = 1
+    k_book, v_book = layouts.default_codebook(21), layouts.default_codebook(8)
+
+    def encode(book, nblk, S, n):
+        codes = rng.choice(np.flatnonzero(book.lengths), (nblk, S, n)).astype(np.uint8)
+        words = (S * n * int(book.lengths.max()) + 31) // 32 + 1
+        payload, nbits, _ = huffman.encode_block_torch(torch.from_numpy(codes).to(device),
+                                                       *book.encode_tables(device), words)
+        return payload, nbits
+
+    def f32(shape, positive=False):
+        x = rng.normal(size=shape).astype(np.float32)
+        return torch.from_numpy(np.abs(x) if positive else x).to(device)
+
+    cases = []
+
+    def add(name, book, payload, nbits, L, max_bits=None, tables=None):
+        nblk = payload.shape[0]
+        cases.append(dict(name=name, payload=payload, nbits=nbits, L=L,
+                          tables=tables or book.as_device_tables(device),
+                          max_bits=int(nbits.max()) if max_bits is None else max_bits,
+                          kmn=f32((nblk, L)), kst=f32((nblk, L), True), q=f32((L,)),
+                          scale=float(L) ** -0.5))
+
+    for S in streams:
+        payload, nbits = encode(k_book, 3, S, 128)
+        nbits[0, S // 2] = 0
+        add(f"K book, S={S}, a zero-bit stream", k_book, payload, nbits, 128)
+    add("V book, S=40", v_book, *encode(v_book, 2, 40, 128), 128)
+    add("skewed book, codes to 16 bits", huffman.build_codebook(skew),
+        *encode(huffman.build_codebook(skew), 2, 64, 128), 128)
+    payload, nbits = encode(k_book, 2, 64, 128)
+    add("K book, max_bits below nbits", k_book, payload, nbits, 128, int(nbits.max()) // 2)
+    add("K book, more symbols than L", k_book, payload, nbits, 100)
+    # every stream of the last block starts and ends past its own bits, the
+    # last ones past the payload
+    add("K book, budgets past the payload", k_book, payload, nbits + torch.tensor(
+        [[0], [400]], dtype=torch.int32, device=device), 128)
+    ch, isym, sym = (t.clone() for t in k_book.as_device_tables(device))
+    ch[int(ch[0, 1]), 0] = 0
+    add("K tables, a child rewired to the root", k_book, payload, nbits, 128,
+        tables=(ch, isym, sym))
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (3, 300), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(device)
+    counts = torch.from_numpy(rng.integers(0, 700, (3, 40)).astype(np.int32)).to(device)
+    add("one-symbol book, random words", huffman.build_codebook(one), words, counts, 128)
+    add("K book, random words, L=99", k_book, words, counts, 99)
+    return cases
+
+
 def phase_huffman_kernels(report: dict) -> None:
     """Phase 11: the huffman decode kernels at Yi-6B width, each driven once
     per codebook through its entry point (counts zeroed just before, read
@@ -544,7 +620,37 @@ def phase_huffman_kernels(report: dict) -> None:
               f"codes bit-exact and lossless, scores max|kernel-plain| = {e:.3e} "
               f"(tol {SCORES_ATOL})")
         err = max(err, e)
-    report["huffman_kernels"] = dict(launches=launches, scores_err=err)
+    codes_err, err = walk_edge_checks(err)
+    report["huffman_kernels"] = dict(launches=launches, scores_err=err, codes_err=codes_err)
+
+
+def walk_edge_checks(scores_err: float) -> tuple[int, float]:
+    """Phase 11, edge cases (``walk_edge_cases``, S of 1, 40, 64 and 100):
+    both walk kernels against their plain versions, codes bit-exact and
+    scores within SCORES_ATOL.  Returns the largest code and score errors,
+    the score error at least ``scores_err``."""
+    import torch
+    from repro_torch.kernels import huffman_decode, ops
+
+    codes_err = 0
+    for x in walk_edge_cases("cuda", streams=(1, 40, 64, 100)):
+        args = (x["payload"], x["nbits"], *x["tables"])
+        codes = ops.huffman_decode(*args, x["L"], x["max_bits"])
+        plain = huffman_decode.huffman_decode_plain(*args, x["L"], x["max_bits"])
+        sc_args = (*args, x["kmn"], x["kst"], x["q"], x["max_bits"])
+        scores = ops.huffman_attn_scores(*sc_args, scale=x["scale"])
+        sc_plain = huffman_decode.huffman_attn_scores_plain(*sc_args, scale=x["scale"])
+        torch.cuda.synchronize()
+        c_err = int((codes.int() - plain.int()).abs().max())
+        e = float((scores - sc_plain).abs().max())
+        if c_err or not (e <= SCORES_ATOL and bool(torch.isfinite(scores).all())):
+            raise AssertionError(f"walk kernels, edge case {x['name']!r}: codes max |err| "
+                                 f"{c_err}, scores max |err| {e} (tol {SCORES_ATOL})")
+        codes_err, scores_err = max(codes_err, c_err), max(scores_err, e)
+        print(f"  edge case {x['name']}: NBLK={x['nbits'].shape[0]}, S={x['nbits'].shape[1]}, "
+              f"L={x['L']}, max_bits {x['max_bits']}: codes bit-exact, scores max|kernel-plain| "
+              f"= {e:.3e}")
+    return codes_err, scores_err
 
 
 def yi_6b():
@@ -1153,6 +1259,51 @@ def phase_times(report: dict) -> list[dict]:
     ]
 
 
+def walk_times(report: dict, inputs: list[dict]) -> list[dict]:
+    """Phase 10, the walk kernels at phase 11's shapes, with the default K
+    book (the JSON rows) and the skewed book.  Bytes: the payload words the
+    streams fill, the bit counts, the tree tables once, and the output;
+    operations: one a decoded bit, plus the scores' dequant and product (4 a
+    code), a lower bound."""
+    from repro_torch.kernels import huffman_decode, ops
+
+    hk = report["huffman_kernels"]
+    walk, entries = {}, []
+    for x in inputs:
+        nblk, S = x["nbits"].shape
+        bits = x["nbits"].sum(-1)
+        pay_bytes = 4 * int(((bits + 31) // 32).sum())
+        tab_bytes = 4 * 4 * x["tables"][1].numel()
+        steps = int(bits.sum())
+        d_args = (x["payload"], x["nbits"], *x["tables"], D, x["max_bits"])
+        s_args = (x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"], x["q"],
+                  x["max_bits"])
+        rows = [
+            ("huffman_decode", lambda: ops.huffman_decode(*d_args),
+             lambda: huffman_decode.huffman_decode_plain(*d_args),
+             bound(pay_bytes + 4 * nblk * S + tab_bytes + nblk * S * D, steps)),
+            ("huffman_attn_scores", lambda: ops.huffman_attn_scores(*s_args, scale=x["scale"]),
+             lambda: huffman_decode.huffman_attn_scores_plain(*s_args, scale=x["scale"]),
+             bound(pay_bytes + 4 * nblk * S + tab_bytes + 2 * 4 * nblk * D + 4 * D
+                   + 4 * nblk * S, steps + 4 * nblk * S * D)),
+        ]
+        for name, kern, plain, (b_ms, b_by) in rows:
+            k_ms = timed(kern)
+            pl_ms = timed(plain, iters=3, warmup=1)
+            walk[name, x["name"]] = dict(ms=k_ms, plain_ms=pl_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"  {name} (NBLK={nblk}, S={S}, L={D}, {x['name']} book): kernel {k_ms:.4f} "
+                  f"ms, plain {pl_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+                  f"{k_ms / b_ms:.0f}x the bound; {hk['launches'][name]} launches on its path")
+    for name, replaces, err in (
+            ("huffman_decode", "src/repro/kernels/huffman_decode.py:56", hk["codes_err"]),
+            ("huffman_attn_scores", "src/repro/kernels/huffman_decode.py:65", hk["scores_err"])):
+        entries.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/csrc/huffman_decode.cu", "replaces": replaces,
+                        "launches": hk["launches"][name], "max_abs_err": err,
+                        **walk[name, "default"], "library_ms": None})
+    return entries
+
+
 def huffman_times(report: dict, case: dict) -> list[dict]:
     """Phase 10, huffman part: the walk kernels at phase 11's shapes, the
     slot LUT decode at the chunk path's shape and at phase 11's, and the
@@ -1160,7 +1311,7 @@ def huffman_times(report: dict, case: dict) -> list[dict]:
     cache)."""
     import torch
     from repro_torch.core.layouts import unpack_u16_pairs
-    from repro_torch.kernels import huffman_decode, ops
+    from repro_torch.kernels import huffman_decode
 
     spec, c = case["spec"], case["c"]
     hr = report["huffman"]
@@ -1188,43 +1339,8 @@ def huffman_times(report: dict, case: dict) -> list[dict]:
               f"{n} kernel launches, {dev_ms:.4f} ms of kernel time, {host_ms:.3f} ms of wall "
               f"a call")
 
-    entries = []
-
-    # The decode kernels at phase 11's shapes, default K book.  Bytes: the
-    # payload words the streams fill, the bit counts, tables or LUT once,
-    # and the output; operations: one a decoded bit (walk) or a probe (LUT),
-    # plus the scores' dequant and product (4 a code), a lower bound.
-    x = huffman_inputs()[0]
-    nblk, S = x["nbits"].shape
-    bits = x["nbits"].sum(-1)
-    pay_bytes = 4 * int(((bits + 31) // 32).sum())
-    tab_bytes = 4 * 4 * x["tables"][1].numel()
-    steps = int(bits.sum())
-    d_args = (x["payload"], x["nbits"], *x["tables"], D, x["max_bits"])
-    s_args = (x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"], x["q"], x["max_bits"])
-    rows = [
-        ("huffman_decode", "src/repro/kernels/huffman_decode.py:56",
-         lambda: ops.huffman_decode(*d_args), lambda: huffman_decode.huffman_decode_plain(*d_args),
-         bound(pay_bytes + 4 * nblk * S + tab_bytes + nblk * S * D, steps),
-         report["huffman_kernels"]["launches"]["huffman_decode"], 0.0),
-        ("huffman_attn_scores", "src/repro/kernels/huffman_decode.py:65",
-         lambda: ops.huffman_attn_scores(*s_args, scale=x["scale"]),
-         lambda: huffman_decode.huffman_attn_scores_plain(*s_args, scale=x["scale"]),
-         bound(pay_bytes + 4 * nblk * S + tab_bytes + 2 * 4 * nblk * D + 4 * D + 4 * nblk * S,
-               steps + 4 * nblk * S * D),
-         report["huffman_kernels"]["launches"]["huffman_attn_scores"],
-         report["huffman_kernels"]["scores_err"]),
-    ]
-    for name, replaces, kern, plain, (b_ms, b_by), launches, err in rows:
-        k_ms = timed(kern)
-        pl_ms = timed(plain, iters=3, warmup=1)
-        print(f"  {name} (NBLK={nblk}, S={S}, L={D}, default K book): kernel {k_ms:.4f} ms, "
-              f"plain {pl_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), {launches} launches on "
-              f"its path")
-        entries.append({"name": name, "route": "cuda",
-                        "source": "src/repro_torch/csrc/huffman_decode.cu", "replaces": replaces,
-                        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": pl_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    inputs = huffman_inputs()
+    entries = walk_times(report, inputs)
 
     # The slot LUT decode as the chunk path calls it: one span (16 slots) of
     # one row's 4 heads, K and V in one launch (the JSON row); and the 256 K
@@ -1258,11 +1374,12 @@ def huffman_times(report: dict, case: dict) -> list[dict]:
     print(f"  huffman_lut_decode (chunk path: 64 K + 64 V slots, one launch): K and V codes "
           f"== plain; kernel {k_ms:.4f} ms, plain {pl_ms:.4f} ms, bound {b_ms:.6f} ms "
           f"({b_by}), {k_ms / b_ms:.0f}x the bound; {hr['lut_per_chunk']:g} launches a chunk")
+    x = inputs[0]
     one = spec.impl._slot_args(spec, x["slots"][None, None], D, x["book"])
     one_ms = timed(lambda: huffman_decode.huffman_lut_decode(
         one[0], one[1], multi=one[2], hdr_words=one[3], probes=one[4], **kw))
     one_b, one_by = lut_bound([(one[0], x["book"], one[3])])
-    print(f"  huffman_lut_decode (NBLK={nblk} K slots, single entry): kernel {one_ms:.4f} ms, "
+    print(f"  huffman_lut_decode (NBLK={NBLK_H} K slots, single entry): kernel {one_ms:.4f} ms, "
           f"bound {one_b:.6f} ms ({one_by})")
     entries.append({"name": "huffman_lut_decode", "route": "cuda",
                     "source": "src/repro_torch/csrc/huffman_decode.cu", "replaces": None,
@@ -1319,6 +1436,39 @@ def split_sweep() -> None:
             f"S={s} " + " / ".join(f"{v:.4f}" for v in ts) + " ms" for s, ts in sorted(t.items())))
 
 
+def walk_parent(parent: Path) -> None:
+    """``--walk-parent DIR``: the walk kernels of the checkout at DIR (its
+    huffman_decode library, built from its own sources) against this
+    tree's, on phase 11's inputs (default and skewed book), each timed as in
+    phase 10 in the order parent, this tree, this tree, parent; every
+    output held against the plain version."""
+    import torch
+    from repro_torch.kernels import huffman_decode, ops, runtime
+
+    times: dict = {}
+    for who in ("parent", "this tree", "this tree", "parent"):
+        ctx = (runtime.variant("huffman_decode", csrc=parent / "src" / "repro_torch" / "csrc")
+               if who == "parent" else contextlib.nullcontext())
+        with ctx:
+            for x in huffman_inputs():
+                d_args = (x["payload"], x["nbits"], *x["tables"], D, x["max_bits"])
+                s_args = (x["payload"], x["nbits"], *x["tables"], x["kmn"], x["kst"], x["q"],
+                          x["max_bits"])
+                codes, scores = ops.huffman_decode(*d_args), ops.huffman_attn_scores(
+                    *s_args, scale=x["scale"])
+                e = float((scores - huffman_decode.huffman_attn_scores_plain(
+                    *s_args, scale=x["scale"])).abs().max())
+                if not (torch.equal(codes, x["codes"]) and e <= SCORES_ATOL):
+                    raise AssertionError(f"{who}, {x['name']} book: codes or scores differ "
+                                         f"(scores max |err| {e})")
+                for name, fn in (("huffman_decode", lambda: ops.huffman_decode(*d_args)),
+                                 ("huffman_attn_scores", lambda: ops.huffman_attn_scores(
+                                     *s_args, scale=x["scale"]))):
+                    times.setdefault((name, x["name"], who), []).append(timed(fn))
+    for (name, book, who), t in times.items():
+        print(f"  {name} ({book} book), {who}: " + " / ".join(f"{v:.4f}" for v in t) + " ms")
+
+
 def main() -> int:
     import torch
 
@@ -1338,6 +1488,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {name}: {line.strip()}")
     check_build()
+    if sys.argv[1:2] == ["--walk-parent"]:
+        print(f"[walk parent] the walk kernels of {sys.argv[2]} against this tree's", flush=True)
+        walk_parent(Path(sys.argv[2]))
+        print(f"total {time.monotonic() - t_start:.1f} s")
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--split-sweep"]:
         print("[split sweep] the Fetch at 1, 2 and 4 ring slots a CTA", flush=True)
         split_sweep()

@@ -34,29 +34,30 @@ __device__ __forceinline__ int stream_bits(const uint32_t* hdr, int s) {
   return static_cast<int>((hdr[s >> 1] >> ((s & 1) * 16)) & 0xFFFFu);
 }
 
-// First bit of stream s: the exclusive prefix sum of the header's counts.
-__device__ __forceinline__ int stream_start(const uint32_t* hdr, int s) {
-  int pos = 0;
-  for (int i = 0; i < s; ++i) pos += stream_bits(hdr, i);
-  return pos;
-}
-
-// stream_start for a whole warp at once: lane L holds stream s = s0 + L
-// (s0 the warp's first stream; streams at or past n_streams count nothing).
-// The streams before the warp are summed lane-strided and reduced, the
-// warp's own by a shuffle scan.  Every lane of the warp must call it.
-__device__ __forceinline__ int stream_start_warp(const uint32_t* hdr, int s, int n_streams) {
+// The first bit of stream s, for a whole warp at once, from the bit counts
+// count(i): lane L holds stream s = s0 + L (s0 the warp's first stream;
+// streams at or past n_streams count nothing).  The streams before the warp
+// are summed lane-strided and reduced, the warp's own by a shuffle scan.
+// Every lane of the warp must call it.
+template <typename Count>
+__device__ __forceinline__ int stream_start_warp_by(Count count, int s, int n_streams) {
   const int lane = threadIdx.x & 31, s0 = s - lane;
   int before = 0;
-  for (int i = lane; i < s0; i += 32) before += stream_bits(hdr, i);
+  for (int i = lane; i < s0; i += 32) before += count(i);
   before = __reduce_add_sync(0xffffffffu, before);
-  const int own = s < n_streams ? stream_bits(hdr, s) : 0;
+  const int own = s < n_streams ? count(s) : 0;
   int incl = own;
   for (int o = 1; o < 32; o <<= 1) {
     const int v = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += v;
   }
   return before + incl - own;
+}
+
+// The first bit of stream s (the exclusive prefix sum of the header's
+// counts), for a whole warp at once.
+__device__ __forceinline__ int stream_start_warp(const uint32_t* hdr, int s, int n_streams) {
+  return stream_start_warp_by([hdr](int i) { return stream_bits(hdr, i); }, s, n_streams);
 }
 
 // Decode n symbols of one stream that starts at bit pos and owns the bits

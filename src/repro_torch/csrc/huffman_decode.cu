@@ -13,26 +13,53 @@
 // the root, for at most max_bits bits and never past its own nbits; nothing
 // lands past n_per_stream, and columns a short stream never reaches stay 0.
 // The scores kernel then dequantizes each column (kmn[w] + c * kst[w]) and
-// sums (K.q) * scale in float32, column by column.
+// sums (K.q) * scale in float32.
 //
-// Design: the paper's own GPU mapping, one CTA a block and one thread a
-// stream, with the tree tables (children, is_symbol, symbols: 8 KB at the
-// padded 512 nodes) in shared memory.  A thread keeps its current payload word
-// in a register and reads the next one through the read-only path only when
-// its bit position crosses a word.  A lane stops at its nbits: past it the
-// walk contributes nothing, and it would otherwise read the next stream's bits.
+// What bounds the walk kernels on an H100: by the card's rates, bytes (a
+// block's payload, a few KB, and its codes or scores out); in fact latency.
+// A launch is one wave (phase 11's 256 blocks: 128 CTAs on 132 SMs), so its
+// time is one CTA's critical path: a trip to device memory, the root
+// table's build, one stream's chain of dependent table probes, the
+// copy-out.  The earlier kernel (PR 13: a CTA a block, a thread a stream
+// walking a bit a step) paid serial start sums, dependent shared reads
+// every bit and a device-memory word read every 32 bits; stamped copies of
+// this one (PERF.md, PR 16) put most of a CTA's cycles in the probe chain,
+// then the trip to device memory.  The design:
+// - Root table.  Each CTA builds a multi-symbol table from the tree tables
+//   it is given (no host step, no codebook): entry c (kPeekBits = 10 bits)
+//   holds the whole codewords the walk from the root meets in c's bits (at
+//   most kPeekSymbols), the bits through each, and the bits up to the walk's
+//   last return to the root; a probe writes them all, so a K stream (4- and
+//   5-bit codes) takes 64 probes where the walk took 540 steps.  An entry
+//   with no return to the root (a code longer than the peek, a tree that is
+//   not complete) holds the node reached, and the stream walks on from it a
+//   bit a step to the next leaf or root: exact for any tree tables.  The
+//   CTA's 512 threads build the 1,024 entries, two walks a thread
+//   interleaved step by step.  A 12-bit table costs more to build than its
+//   shorter chain saves, and one built by a kernel of its own and staged
+//   into every CTA was no faster.
+// - Copies.  Every read of device memory is a 16-byte cp.async of the
+//   granules that cover it, all in flight at once: the tree tables (then
+//   packed into a word a node), then the payload and bit counts.  Codes go
+//   to rows of stride L4 + 4 in shared memory and leave in 16-byte stores.
+// - Streams.  A thread decodes a stream and finds its first bit with the
+//   warp scan (huff::stream_start_warp_by).  The probe loop keeps three
+//   payload words in registers, moves its window by selects, and issues the
+//   next probe's table read before the branch to its slow path (the
+//   budget's last probe, and the bit walk) and before this probe's stores.
+// - Scores.  Kernel 4 forms kmn * q and kst * q once a block, and a thread
+//   sums its row's fma(c, kst q, kmn q) right after its decode, while other
+//   streams still decode (four threads a row after a barrier was slower).
+// - Shape.  A CTA takes two blocks and has 512 threads (at S = 64, 128
+//   decode; the rest stage, build and copy out): phase 11's 256 blocks are
+//   128 CTAs, one wave.  One or four blocks a CTA, or 256 threads, were
+//   slower.
 //
 // huffman_lut_decode_kernel has no Pallas counterpart: it is the blockwise
 // chunk path's slot decode (`HuffmanLayout._decode`, src/repro/core/
 // layouts.py:755-774, which the reference runs as one XLA loop), of K and V
 // in one launch.  It writes the codes of the reference's chunked LUT decode
 // (`decode_block_lut_jax`), edge cases included.
-//
-// What bounds the walk kernels on an H100: by the card's rates, bytes (a
-// block's payload, a few KB, and its codes or scores out), but in fact
-// latency: every symbol is a chain of dependent reads (tree steps or LUT
-// probes), and a block has only S = 64 streams at Yi-6B width.  Simple and
-// right first; times beside the bound are in PERF.md.
 //
 // The slot decode is bound the same way.  By the card's rates a 64-slot
 // span of one layer is 0.5 MB of slots and codes, 0.2 us; in fact a slot's
@@ -61,9 +88,13 @@
 //   largest thing a CTA stages, so two slots share one copy of it, and at
 //   T = 64 the CTA's four warps give each of an SM's schedulers one chain.
 //   K and V slots go to different CTAs of the same launch.
-// `-Xptxas -v` for sm_90a: the slot decode 32 registers, the walk kernels
-// 31; no stack, no spills.  Shared memory of a slot-decode CTA at Yi-6B
-// width: 32,768 B of table, 16,896 B of code rows, 2 x 5,280 B of K slot.
+// `-Xptxas -v` for sm_90a: the slot decode 32 registers, the walk decode 31,
+// the walk + scores 40; no stack, no spills.  Shared memory at Yi-6B width:
+// a slot-decode CTA 32,768 B of table, 16,896 B of code rows, 2 x 5,280 B of
+// K slot; a walk CTA on phase 11's blocks (W = 1281 words) 46,224 B (decode)
+// and 50,912 B (scores): 8,192 B of root table, 2,048 B of node records,
+// 16,896 B of code rows, 8,240 B of staged tree tables, per block its
+// payload and bit counts (and the score rows and factors).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,97 +104,342 @@
 
 namespace {
 
+// ---- The walk kernels ------------------------------------------------------
+
+constexpr int kPeekBits = 10;          // a root-table probe peeks this many stream bits
+constexpr int kPeekSymbols = 4;        // whole codewords an entry holds, at most
+constexpr int kWalkBlocksPerCta = 2;   // blocks of streams a CTA decodes
+constexpr int kWalkThreads = 512;      // a walk CTA's threads
+constexpr uint32_t kChildMask = 0x1FFu;  // a node record: child 0 at bits 0..8,
+constexpr uint32_t kLeafBit = 1u << 18;  // child 1 at 9..17, the leaf flag, and the
+                                         // symbol at 24..31 (huffman.py MAX_NODES = 512)
+
 struct WalkArgs {
   const uint32_t* payload;  // [NBLK, W]
   const int* nbits;         // [NBLK, S] (u16 values)
   const int* children;      // [n_nodes, 2]
   const int* is_symbol;     // [n_nodes]
   const int* symbols;       // [n_nodes]
-  int W, S, L, n_nodes, max_bits;
+  int NBLK, W, S, L, n_nodes, max_bits;
 };
 
-// Stage the tree tables and the block's bit counts in shared memory.
-__device__ void stage_tables(const WalkArgs& a, int blk, int* ch, int* isym, int* sym,
-                             int* nb) {
-  for (int i = threadIdx.x; i < 2 * a.n_nodes; i += blockDim.x) ch[i] = a.children[i];
-  for (int i = threadIdx.x; i < a.n_nodes; i += blockDim.x) {
-    isym[i] = a.is_symbol[i];
-    sym[i] = a.symbols[i];
+// A walk CTA's shared memory, byte offsets (each a multiple of 16): the root
+// table; the node records; the code rows of all its blocks (stride rs, so
+// the blocks' rows are consecutive as in the output); the tree tables and q
+// as staged; then per block its payload and bit counts as staged and, for
+// the scores, its k_min and k_step rows as staged and the factors kmn * q
+// and kst * q.
+struct WalkSmem {
+  int nodes, rows, rs, ch, isym, sym, q, block, nb, kmn, kst, fac, per_block, total;
+};
+
+__host__ __device__ inline WalkSmem walk_smem(int W, int S, int L, int n_nodes, bool scores) {
+  WalkSmem m;
+  const int L4 = (L + 3) / 4 * 4;
+  m.nodes = static_cast<int>(sizeof(uint2)) << kPeekBits;
+  m.rows = m.nodes + (4 * n_nodes + 15) / 16 * 16;
+  m.rs = L4 + 4;
+  m.ch = m.rows + (kWalkBlocksPerCta * S * m.rs + 15) / 16 * 16;
+  m.isym = m.ch + run_bytes(8 * n_nodes);
+  m.sym = m.isym + run_bytes(4 * n_nodes);
+  m.q = m.sym + run_bytes(4 * n_nodes);
+  m.block = m.q + (scores ? run_bytes(4 * L) : 0);
+  m.nb = run_bytes(4 * W);  // the payload first
+  m.kmn = m.nb + run_bytes(4 * S);
+  m.kst = m.kmn + (scores ? run_bytes(4 * L) : 0);
+  m.fac = m.kst + (scores ? run_bytes(4 * L) : 0);
+  m.per_block = m.fac + (scores ? 2 * 4 * L4 : 0);
+  m.total = m.block + kWalkBlocksPerCta * m.per_block;
+  return m;
+}
+
+__device__ __forceinline__ uint32_t child_of(uint32_t rec, uint32_t bit) {
+  return (rec >> (9 * bit)) & kChildMask;
+}
+
+// Root-table entry c: the tree walk from the root along the kPeekBits bits
+// of c (LSB-first), a step idx = child(idx, bit) and, at a leaf, the symbol
+// and back to the root, as walk_decode_jax steps.  .x holds the symbols of
+// the first kPeekSymbols leaves at bits 8k, .y their count, the bits
+// consumed through each at bits 4 + 4k, and at bits 20..23 the bits
+// consumed in all: up to the last step that left the walk at the root (a
+// leaf, or a child pointer back to the root).  Where no step in the peek
+// does, .y is 0 and .x is the node the walk has reached.
+//
+// The CTA's threads build the table kBuildIlp entries a thread at a time,
+// the entries' walks interleaved step by step (selects, no branches), so a
+// thread keeps kBuildIlp node reads in flight.
+constexpr int kBuildIlp = 2;
+
+__device__ __forceinline__ void build_root_table(const uint32_t* nodes, uint2* tab) {
+  const uint32_t root = nodes[0];
+  for (int c0 = threadIdx.x; c0 < (1 << kPeekBits); c0 += kBuildIlp * kWalkThreads) {
+    uint32_t rec[kBuildIlp], idx[kBuildIlp], syms[kBuildIlp], meta[kBuildIlp], cnt[kBuildIlp],
+        used[kBuildIlp];
+#pragma unroll
+    for (int k = 0; k < kBuildIlp; ++k) {
+      rec[k] = root;
+      idx[k] = syms[k] = meta[k] = cnt[k] = used[k] = 0;
+    }
+#pragma unroll
+    for (int b = 0; b < kPeekBits; ++b) {
+#pragma unroll
+      for (int k = 0; k < kBuildIlp; ++k) {
+        const uint32_t c = static_cast<uint32_t>(c0 + k * kWalkThreads);
+        const uint32_t nxt = child_of(rec[k], (c >> b) & 1u);
+        const uint32_t r = nodes[nxt];
+        const bool live = cnt[k] < kPeekSymbols, leaf = live && (r & kLeafBit);
+        syms[k] |= leaf ? (r >> 24) << (8 * cnt[k]) : 0u;
+        meta[k] |= leaf ? static_cast<uint32_t>(b + 1) << (4 + 4 * cnt[k]) : 0u;
+        used[k] = live && (leaf || nxt == 0) ? b + 1 : used[k];
+        idx[k] = live ? (leaf ? 0u : nxt) : idx[k];
+        rec[k] = live ? (leaf ? root : r) : rec[k];
+        cnt[k] += leaf;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBuildIlp; ++k) {
+      const int c = c0 + k * kWalkThreads;
+      if (c < (1 << kPeekBits))
+        tab[c] = used[k] ? make_uint2(syms[k], cnt[k] | meta[k] | (used[k] << 20))
+                         : make_uint2(idx[k], 0u);
+    }
   }
-  for (int s = threadIdx.x; s < a.S; s += blockDim.x) nb[s] = a.nbits[blk * a.S + s];
+}
+
+// Decode the stream that owns bits [pos, end) of the staged payload (n_words
+// words; reads clamp to the last) into row[0 .. L): the tree walk's codes,
+// row zeroed beforehand (columns the walk never reaches stay 0).  A probe
+// reads the root-table entry of the kPeekBits bits at pos and writes its
+// whole codewords; after a leaf the walk is at the root, so the next probe
+// starts at the last leaf's end.  The walk stops at the budget end or once
+// L codes are written.  The hot path takes a probe that ends a codeword
+// with the budget at least a peek away: the window (three words in
+// registers, the third loaded a probe ahead) moves by selects, and the next
+// probe's read is issued before this probe's stores.  The slow path takes
+// the rest and reloads the window: a probe the budget may end inside (a
+// symbol whose last bit passes end is written as 0), and a peek with no
+// return to the root (a code longer than the peek, or a tree that is not
+// complete), from whose node the walk goes on a bit a step to the next leaf
+// or return to the root.  row needs kPeekSymbols - 1 bytes of room past L.
+__device__ __forceinline__ void walk_decode_stream(const uint32_t* words, int n_words, int pos,
+                                                   int end, const uint2* tab,
+                                                   const uint32_t* nodes, int L,
+                                                   uint8_t* row) {
+  constexpr uint32_t kMask = (1u << kPeekBits) - 1u;
+  const int last = n_words - 1;
+  int w = pos >> 5, col = 0;
+  uint32_t b = static_cast<uint32_t>(pos & 31);
+  uint32_t lo = words[min(w, last)], hi = words[min(w + 1, last)], nx = words[min(w + 2, last)];
+  uint2 e = tab[__funnelshift_r(lo, hi, b) & kMask];
+  while (pos < end && col < L) {
+    const uint32_t adv = e.y >> 20;  // <= kPeekBits < 32
+    const int cnt = static_cast<int>(e.y & 7u);
+    const bool cross = b + adv >= 32;
+    const uint32_t nb = (b + adv) & 31u, nlo = cross ? hi : lo, nhi = cross ? nx : hi;
+    const uint2 next = tab[__funnelshift_r(nlo, nhi, nb) & kMask];
+    if (adv == 0 || end - pos < kPeekBits) {
+      if (adv != 0) {
+        uint32_t sym = e.x;
+#pragma unroll
+        for (int k = 0; k < kPeekSymbols; ++k)
+          if (pos + static_cast<int>((e.y >> (4 + 4 * k)) & 15u) > end) sym &= ~(0xFFu << (8 * k));
+#pragma unroll
+        for (int k = 0; k < kPeekSymbols; ++k)
+          if (k < cnt) row[col + k] = static_cast<uint8_t>(sym >> (8 * k));
+        col += cnt;
+        pos += static_cast<int>(adv);
+      } else {
+        if (end - pos <= kPeekBits) break;  // no leaf can end inside the budget
+        uint32_t idx = e.x, rec = nodes[idx];
+        int p = pos + kPeekBits;
+        while (p < end) {
+          idx = child_of(rec, (words[min(p >> 5, last)] >> (p & 31)) & 1u);
+          rec = nodes[idx];
+          ++p;
+          if (rec & kLeafBit) {
+            row[col++] = static_cast<uint8_t>(rec >> 24);
+            break;
+          }
+          if (idx == 0) break;
+        }
+        pos = p;
+      }
+      w = pos >> 5;
+      b = static_cast<uint32_t>(pos & 31);
+      lo = words[min(w, last)];
+      hi = words[min(w + 1, last)];
+      nx = words[min(w + 2, last)];
+      e = tab[__funnelshift_r(lo, hi, b) & kMask];
+      continue;
+    }
+    b = nb;
+    lo = nlo;
+    hi = nhi;
+    w += cross;
+    nx = words[min(w + 2, last)];
+#pragma unroll
+    for (int k = 0; k < kPeekSymbols; ++k)
+      if (k < cnt) row[col + k] = static_cast<uint8_t>(e.x >> (8 * k));
+    col += cnt;
+    pos += static_cast<int>(adv);
+    e = next;
+  }
+}
+
+// Copy nrows rows of width bytes (stride bytes apart in shared memory, each
+// 4-byte aligned) to consecutive rows of out: 16 bytes a store where width
+// is a multiple of 16, else 4, else 1.
+__device__ __forceinline__ void copy_rows_out(const uint8_t* rows, int stride, int nrows,
+                                              int width, uint8_t* out) {
+  if (width % 4 != 0) {
+    for (int i = threadIdx.x; i < nrows * width; i += blockDim.x) {
+      const int r = i / width;
+      out[i] = rows[r * stride + (i - r * width)];
+    }
+    return;
+  }
+  const uint32_t* rw = reinterpret_cast<const uint32_t*>(rows);
+  const int vec = width % 16 == 0 ? 4 : 1, per_row = width / (4 * vec);
+  const float r_per_row = 1.f / static_cast<float>(per_row);
+  for (int i = threadIdx.x; i < nrows * per_row; i += blockDim.x) {
+    const int r = div_small(i, per_row, r_per_row), c = i - r * per_row;
+    const uint32_t* src = rw + r * (stride / 4) + c * vec;
+    uint8_t* dst = out + r * width + 4 * vec * c;
+    if (vec == 4) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(src[0], src[1], src[2], src[3]);
+    } else {
+      *reinterpret_cast<uint32_t*>(dst) = src[0];
+    }
+  }
+}
+
+// The score of one code row (L4 codes, the factors kmn * q at kq and kst * q
+// at g, zero past L): fma(c, kst q, kmn q) summed in a running float32 sum
+// for each column mod 4, then ((s0 + s1) + (s2 + s3)).
+__device__ __forceinline__ float row_score(const uint8_t* row, const float* kq, const float* g,
+                                           int L4) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < L4 / 4; ++i) {
+    const uint32_t c = reinterpret_cast<const uint32_t*>(row)[i];
+    const float4 k = reinterpret_cast<const float4*>(kq)[i];
+    const float4 s = reinterpret_cast<const float4*>(g)[i];
+    acc[0] += fmaf(static_cast<float>(c & 0xFFu), s.x, k.x);
+    acc[1] += fmaf(static_cast<float>((c >> 8) & 0xFFu), s.y, k.y);
+    acc[2] += fmaf(static_cast<float>((c >> 16) & 0xFFu), s.z, k.z);
+    acc[3] += fmaf(static_cast<float>(c >> 24), s.w, k.w);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// A walk CTA (kWalkThreads threads): blocks b0 .. b0 + kWalkBlocksPerCta - 1,
+// Tb threads each (S rounded up to whole warps, at most kWalkThreads /
+// kWalkBlocksPerCta), thread t of a block decoding its streams t, t + Tb, ...
+// The CTA's other threads help stage, build the root table and copy the
+// codes out.
+template <bool kScores>
+__device__ __forceinline__ void walk_cta(const WalkArgs& a, const float* k_min,
+                                         const float* k_step, const float* q, float scale,
+                                         uint8_t* codes, float* scores) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  if (a.S == 0) return;
+  const WalkSmem m = walk_smem(a.W, a.S, a.L, a.n_nodes, kScores);
+  const int b0 = blockIdx.x * kWalkBlocksPerCta, nblk = min(kWalkBlocksPerCta, a.NBLK - b0);
+  uint2* tab = reinterpret_cast<uint2*>(sm);
+  uint32_t* nodes = reinterpret_cast<uint32_t*>(sm + m.nodes);
+  uint8_t* rows = sm + m.rows;
+
+  // Every read of device memory is a 16-byte copy, all in flight at once:
+  // the tree tables (and q, k_min, k_step) first, then the blocks' payload
+  // and bit counts; the rows are zeroed meanwhile.  The node records, the
+  // score factors and the root table are made while the payload arrives.
+  stage_run(sm + m.ch, a.children, 8 * a.n_nodes, kWalkThreads);
+  stage_run(sm + m.isym, a.is_symbol, 4 * a.n_nodes, kWalkThreads);
+  stage_run(sm + m.sym, a.symbols, 4 * a.n_nodes, kWalkThreads);
+  if constexpr (kScores) {
+    stage_run(sm + m.q, q, 4 * a.L, kWalkThreads);
+    for (int j = 0; j < nblk; ++j) {
+      uint8_t* st = sm + m.block + j * m.per_block;
+      stage_run(st + m.kmn, k_min + static_cast<size_t>(b0 + j) * a.L, 4 * a.L, kWalkThreads);
+      stage_run(st + m.kst, k_step + static_cast<size_t>(b0 + j) * a.L, 4 * a.L, kWalkThreads);
+    }
+  }
+  cp_async_commit();
+  for (int j = 0; j < nblk; ++j) {
+    uint8_t* st = sm + m.block + j * m.per_block;
+    stage_run(st, a.payload + static_cast<size_t>(b0 + j) * a.W, 4 * a.W, kWalkThreads);
+    stage_run(st + m.nb, a.nbits + static_cast<size_t>(b0 + j) * a.S, 4 * a.S, kWalkThreads);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < (m.ch - m.rows) / 16; i += kWalkThreads)
+    reinterpret_cast<uint4*>(rows)[i] = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<1>();
   __syncthreads();
-}
 
-// The branchless walk of stream s: emit(w, sym) at each leaf with w < L.
-// Returns the number of leaves reached.
-template <typename Emit>
-__device__ int walk_stream(const WalkArgs& a, int blk, const int* ch, const int* isym,
-                           const int* sym, const int* nb, int s, Emit emit) {
-  const uint32_t* payload = a.payload + static_cast<size_t>(blk) * a.W;
-  int start = 0;
-  for (int i = 0; i < s; ++i) start += nb[i];
-  const int n = min(nb[s], a.max_bits);
-  int idx = 0, w = 0, cur = -1;
-  uint32_t word = 0;
-  for (int p = 0; p < n; ++p) {
-    const int g = start + p;
-    const int wi = min(g >> 5, a.W - 1);  // reads clamp to the payload, as the walk's gathers
-    if (wi != cur) {
-      word = __ldg(payload + wi);
-      cur = wi;
-    }
-    idx = ch[2 * idx + ((word >> (g & 31)) & 1u)];
-    if (isym[idx]) {
-      if (w < a.L) emit(w, sym[idx]);
-      ++w;
-      idx = 0;
+  const int2* ch = landed<int2>(sm + m.ch, a.children);
+  const int* isym = landed<int>(sm + m.isym, a.is_symbol);
+  const int* sym = landed<int>(sm + m.sym, a.symbols);
+  const uint32_t top = static_cast<uint32_t>(a.n_nodes - 1);
+  for (int i = threadIdx.x; i < a.n_nodes; i += kWalkThreads) {
+    const int2 c = ch[i];
+    nodes[i] = min(static_cast<uint32_t>(c.x), top) | (min(static_cast<uint32_t>(c.y), top) << 9) |
+               (isym[i] ? kLeafBit : 0u) | (static_cast<uint32_t>(sym[i]) << 24);
+  }
+  if constexpr (kScores) {
+    const int L4 = (a.L + 3) / 4 * 4;
+    const float* qs = landed<float>(sm + m.q, q);
+    for (int i = threadIdx.x; i < nblk * L4; i += kWalkThreads) {
+      const int j = i / L4, d = i - j * L4;
+      const size_t at = static_cast<size_t>(b0 + j) * a.L;
+      uint8_t* st = sm + m.block + j * m.per_block;
+      float* f = reinterpret_cast<float*>(st + m.fac);
+      const bool in = d < a.L;
+      f[d] = in ? landed<float>(st + m.kmn, k_min + at)[d] * qs[d] : 0.f;
+      f[L4 + d] = in ? landed<float>(st + m.kst, k_step + at)[d] * qs[d] : 0.f;
     }
   }
-  return w;
+  __syncthreads();
+  build_root_table(nodes, tab);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int Tb = min((a.S + 31) / 32 * 32, kWalkThreads / kWalkBlocksPerCta);
+  const int j = threadIdx.x / Tb, t = threadIdx.x - j * Tb;
+  if (j < nblk) {  // whole warps
+    const uint8_t* st = sm + m.block + j * m.per_block;
+    const uint32_t* words = landed<uint32_t>(st, a.payload + static_cast<size_t>(b0 + j) * a.W);
+    const int* nb = landed<int>(st + m.nb, a.nbits + static_cast<size_t>(b0 + j) * a.S);
+    for (int s0 = 0; s0 < a.S; s0 += Tb) {
+      const int s = s0 + t;
+      const int pos = huff::stream_start_warp_by([nb](int i) { return nb[i]; }, s, a.S);
+      if (s < a.S) {
+        uint8_t* row = rows + (j * a.S + s) * m.rs;
+        walk_decode_stream(words, a.W, pos, pos + min(nb[s], a.max_bits), tab, nodes, a.L, row);
+        if constexpr (kScores) {
+          const int L4 = (a.L + 3) / 4 * 4;
+          const float* kq = reinterpret_cast<const float*>(st + m.fac);
+          scores[static_cast<size_t>(b0 + j) * a.S + s] = row_score(row, kq, kq + L4, L4) * scale;
+        }
+      }
+    }
+  }
+  if constexpr (!kScores) {
+    __syncthreads();
+    copy_rows_out(rows, m.rs, nblk * a.S, a.L, codes + static_cast<size_t>(b0) * a.S * a.L);
+  }
 }
 
-__global__ void huffman_decode_kernel(WalkArgs a, uint8_t* out) {
-  extern __shared__ int smem[];
-  int* ch = smem;
-  int* isym = ch + 2 * a.n_nodes;
-  int* sym = isym + a.n_nodes;
-  int* nb = sym + a.n_nodes;
-  const int blk = blockIdx.x;
-  stage_tables(a, blk, ch, isym, sym, nb);
-  for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-    uint8_t* row = out + (static_cast<size_t>(blk) * a.S + s) * a.L;
-    const int w = walk_stream(a, blk, ch, isym, sym, nb, s,
-                              [&](int c, int v) { row[c] = static_cast<uint8_t>(v); });
-    for (int c = w; c < a.L; ++c) row[c] = 0;
-  }
+__global__ void __launch_bounds__(kWalkThreads) huffman_decode_kernel(WalkArgs a, uint8_t* out) {
+  walk_cta<false>(a, nullptr, nullptr, nullptr, 0.f, out, nullptr);
 }
 
-__global__ void huffman_attn_scores_kernel(WalkArgs a, const float* k_min, const float* k_step,
-                                           const float* q, float scale, float* out) {
-  extern __shared__ int smem[];
-  int* ch = smem;
-  int* isym = ch + 2 * a.n_nodes;
-  int* sym = isym + a.n_nodes;
-  int* nb = sym + a.n_nodes;
-  float* kmn = reinterpret_cast<float*>(nb + a.S);
-  float* kst = kmn + a.L;
-  float* qs = kst + a.L;
-  const int blk = blockIdx.x;
-  for (int d = threadIdx.x; d < a.L; d += blockDim.x) {
-    kmn[d] = k_min[static_cast<size_t>(blk) * a.L + d];
-    kst[d] = k_step[static_cast<size_t>(blk) * a.L + d];
-    qs[d] = q[d];
-  }
-  stage_tables(a, blk, ch, isym, sym, nb);
-  for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-    float acc = 0.f;
-    const int w = walk_stream(a, blk, ch, isym, sym, nb, s, [&](int c, int v) {
-      acc += (kmn[c] + static_cast<float>(v) * kst[c]) * qs[c];
-    });
-    for (int c = w; c < a.L; ++c) acc += kmn[c] * qs[c];  // code 0 past the stream's end
-    out[static_cast<size_t>(blk) * a.S + s] = acc * scale;
-  }
+__global__ void __launch_bounds__(kWalkThreads)
+    huffman_attn_scores_kernel(WalkArgs a, const float* k_min, const float* k_step,
+                               const float* q, float scale, float* out) {
+  walk_cta<true>(a, k_min, k_step, q, scale, nullptr, out);
 }
+
+// ---- The slot LUT decode ---------------------------------------------------
 
 // The slot LUT decode.  A CTA takes kSlotsPerCta slots of one tensor, Tw =
 // T rounded up to a warp threads a slot, thread s of a slot decoding its
@@ -245,27 +521,9 @@ __global__ void __launch_bounds__(1024) huffman_lut_decode_kernel(SlotParams p) 
   }
   __syncthreads();
 
-  // Copy-out, row-major, 16 bytes a store (4 where D is not a multiple of 16);
-  // the two slots' rows are consecutive in the output, as in shared memory.
-  const uint32_t* rw = reinterpret_cast<const uint32_t*>(rows);
-  const int vec = D % 16 == 0 ? 4 : 1, per_row = D / (4 * vec);
-  const float r_per_row = 1.f / static_cast<float>(per_row);
-  uint8_t* out = a.out + static_cast<size_t>(n0) * T * D;
-  for (int i = threadIdx.x; i < nslots * T * per_row; i += blockDim.x) {
-    const int r = div_small(i, per_row, r_per_row), c = i - r * per_row;
-    const uint32_t* src = rw + r * (DP / 4) + c * vec;
-    uint8_t* dst = out + r * D + 4 * vec * c;
-    if (vec == 4) {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(src[0], src[1], src[2], src[3]);
-    } else {
-      *reinterpret_cast<uint32_t*>(dst) = src[0];
-    }
-  }
-}
-
-int threads_for(int n) {
-  const int t = ((n + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
+  // Copy-out, row-major; the two slots' rows are consecutive in the output,
+  // as in shared memory.
+  copy_rows_out(rows, DP, nslots * T, D, a.out + static_cast<size_t>(n0) * T * D);
 }
 
 template <typename Kernel>
@@ -275,17 +533,20 @@ int set_smem(Kernel* kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-WalkArgs walk_args(const void* payload, const void* nbits, const void* children,
-                   const void* is_symbol, const void* symbols, int W, int S, int L,
-                   int n_nodes, int max_bits) {
-  WalkArgs a;
-  a.payload = static_cast<const uint32_t*>(payload);
-  a.nbits = static_cast<const int*>(nbits);
-  a.children = static_cast<const int*>(children);
-  a.is_symbol = static_cast<const int*>(is_symbol);
-  a.symbols = static_cast<const int*>(symbols);
-  a.W = W; a.S = S; a.L = L; a.n_nodes = n_nodes; a.max_bits = max_bits;
-  return a;
+// A walk kernel's launch: kWalkBlocksPerCta blocks a CTA of kWalkThreads.
+template <typename Kernel, typename... Rest>
+int walk_launch(Kernel* kernel, bool scores, const void* payload, const void* nbits,
+                const void* children, const void* is_symbol, const void* symbols, int NBLK,
+                int W, int S, int L, int n_nodes, int max_bits, void* stream, Rest... rest) {
+  const WalkArgs a{static_cast<const uint32_t*>(payload), static_cast<const int*>(nbits),
+                   static_cast<const int*>(children), static_cast<const int*>(is_symbol),
+                   static_cast<const int*>(symbols), NBLK, W, S, L, n_nodes, max_bits};
+  const int smem = walk_smem(W, S, L, n_nodes, scores).total;
+  const int e = set_smem(kernel, smem);
+  if (e != 0) return e;
+  kernel<<<(NBLK + kWalkBlocksPerCta - 1) / kWalkBlocksPerCta, kWalkThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a, rest...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -301,14 +562,8 @@ const char* huffman_decode_error_string(int code) {
 int huffman_decode_launch(const void* payload, const void* nbits, const void* children,
                           const void* is_symbol, const void* symbols, void* out, int NBLK,
                           int W, int S, int L, int n_nodes, int max_bits, void* stream) {
-  const WalkArgs a = walk_args(payload, nbits, children, is_symbol, symbols, W, S, L, n_nodes,
-                               max_bits);
-  const size_t smem = sizeof(int) * (4 * static_cast<size_t>(n_nodes) + S);
-  const int e = set_smem(huffman_decode_kernel, smem);
-  if (e != 0) return e;
-  huffman_decode_kernel<<<NBLK, threads_for(S), smem, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return walk_launch(huffman_decode_kernel, false, payload, nbits, children, is_symbol, symbols,
+                     NBLK, W, S, L, n_nodes, max_bits, stream, static_cast<uint8_t*>(out));
 }
 
 int huffman_attn_scores_launch(const void* payload, const void* nbits, const void* children,
@@ -316,17 +571,10 @@ int huffman_attn_scores_launch(const void* payload, const void* nbits, const voi
                                const void* k_step, const void* q, void* out, int NBLK, int W,
                                int S, int L, int n_nodes, int max_bits, float scale,
                                void* stream) {
-  const WalkArgs a = walk_args(payload, nbits, children, is_symbol, symbols, W, S, L, n_nodes,
-                               max_bits);
-  const size_t smem = sizeof(int) * (4 * static_cast<size_t>(n_nodes) + S) +
-                      sizeof(float) * 3 * static_cast<size_t>(L);
-  const int e = set_smem(huffman_attn_scores_kernel, smem);
-  if (e != 0) return e;
-  huffman_attn_scores_kernel<<<NBLK, threads_for(S), smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const float*>(k_min), static_cast<const float*>(k_step),
-      static_cast<const float*>(q), scale, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return walk_launch(huffman_attn_scores_kernel, true, payload, nbits, children, is_symbol,
+                     symbols, NBLK, W, S, L, n_nodes, max_bits, stream,
+                     static_cast<const float*>(k_min), static_cast<const float*>(k_step),
+                     static_cast<const float*>(q), scale, static_cast<float*>(out));
 }
 
 // The slot LUT decode of K and V in one launch (vN = 0: K alone); a null

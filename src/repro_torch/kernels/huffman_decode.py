@@ -2,9 +2,11 @@
 versions.
 
 * ``huffman_decode`` replaces the Pallas kernel
-  ``repro.kernels.huffman_decode._decode_kernel``: the paper's branchless
-  bit-serial tree walk, one thread a stream, -> uint8 codes.
-* ``huffman_attn_scores`` replaces ``_fused_scores_kernel``: the same walk,
+  ``repro.kernels.huffman_decode._decode_kernel``: the paper's tree walk of
+  each stream -> uint8 codes.  On the card a thread a stream probes a root
+  table that each CTA builds from the tree tables (every whole codeword of
+  10 stream bits a probe), and walks a bit a step only past it.
+* ``huffman_attn_scores`` replaces ``_fused_scores_kernel``: the same decode,
   then the K dequant and the scores ``(K.q) * scale``.
 * ``huffman_lut_decode`` has no Pallas counterpart: it decodes whole cache
   slots (u16 header + payload) into the chunked LUT's codes, for the huffman
@@ -14,7 +16,9 @@ versions.
   it in place of the LUT: the same codes in fewer probes.
 
 Each wrapper takes its plain version (``kernels.ref`` and ``core.huffman``)
-only for CPU tensors; for CUDA tensors it launches its kernel or raises.  Words are
+only for CPU tensors; for CUDA tensors it launches its kernel or raises (the
+walk kernels raise where two blocks' payload, bit counts and code rows do
+not fit a CTA's shared memory).  Words are
 int32 tensors holding u32 bit patterns; bit counts are int32 tensors of u16
 values; tree tables are ``CodeBook.as_device_tables``.
 """

@@ -78,11 +78,13 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def _target(name: str, defines: tuple = ()) -> tuple[Path, Path]:
-    """The source of kernel ``name`` and its library's path, named by a hash
-    of the source, of each ``csrc`` header it includes (recursively) and of
-    the preprocessor ``defines`` ((NAME, value) pairs) it is built with."""
-    src = CSRC / f"{name}.cu"
+def _target(name: str, defines: tuple = (), csrc: Path | None = None) -> tuple[Path, Path]:
+    """The source of kernel ``name`` in ``csrc`` (default ``CSRC``) and its
+    library's path, named by a hash of the source, of each header it
+    includes (recursively) and of the preprocessor ``defines`` ((NAME,
+    value) pairs) it is built with."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(repr(defines).encode())
     todo, seen = [src], set()
     while todo:
@@ -92,22 +94,22 @@ def _target(name: str, defines: tuple = ()) -> tuple[Path, Path]:
         seen.add(path)
         text = path.read_bytes()
         h.update(path.name.encode() + b"\0" + text)
-        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(text)]
+        todo += [csrc / inc.decode() for inc in _INCLUDE.findall(text)]
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS, defines: tuple = ()) -> dict[str, float]:
-    """Compile every named kernel that has no current build, one ``nvcc``
-    per source, all started together, each with ``-D`` of the ``defines``.
-    Returns each build's seconds (0.0 where a current library already
-    existed)."""
+def build(names=KERNELS, defines: tuple = (), csrc: Path | None = None) -> dict[str, float]:
+    """Compile every named kernel of ``csrc`` (default ``CSRC``) that has no
+    current build, one ``nvcc`` per source, all started together, each with
+    ``-D`` of the ``defines``.  Returns each build's seconds (0.0 where a
+    current library already existed)."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, secs = {}, {}
     t0 = time.monotonic()
     for name in names:
-        src, lib = _target(name, defines)
+        src, lib = _target(name, defines, csrc)
         if lib.exists():
             secs[name] = 0.0
             continue
@@ -140,9 +142,9 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _load(name: str, defines: tuple = ()) -> ctypes.CDLL:
-    build((name,), defines)
-    lib = ctypes.CDLL(str(_target(name, defines)[1]))
+def _load(name: str, defines: tuple = (), csrc: Path | None = None) -> ctypes.CDLL:
+    build((name,), defines, csrc)
+    lib = ctypes.CDLL(str(_target(name, defines, csrc)[1]))
     launch = getattr(lib, f"{name}_launch")
     launch.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
@@ -152,12 +154,13 @@ def _load(name: str, defines: tuple = ()) -> ctypes.CDLL:
 
 
 @contextlib.contextmanager
-def variant(name: str, **defines):
-    """Within the block, kernel ``name`` launches from a build with these
-    preprocessor defines: a way to measure a kernel's compile-time constant
-    at other values.  The package itself never sets one."""
+def variant(name: str, csrc: Path | None = None, **defines):
+    """Within the block, kernel ``name`` launches from a build of its source
+    in ``csrc`` (another checkout's, say) with these preprocessor defines: a
+    way to measure a kernel's compile-time constant at other values, or an
+    earlier version of the kernel.  The package itself never sets one."""
     saved = _libs.get(name)
-    _libs[name] = _load(name, tuple(sorted(defines.items())))
+    _libs[name] = _load(name, tuple(sorted(defines.items())), csrc)
     try:
         yield _libs[name]
     finally:

@@ -5,6 +5,9 @@ here, so the file also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -291,7 +294,8 @@ def _skewed_book():
 def test_huffman_decode_kernels_match_plain_on_card(skewed, cuda):
     """Kernels 3 and 4 and the slot LUT decode on real K slots, with the
     layout's default K book and a skewed book (2 LUT probes): codes
-    bit-exact and lossless, scores within 1e-4."""
+    bit-exact and lossless, scores within 1e-4; the walk decode also on the
+    first 1 and 40 streams of each block."""
     book = _skewed_book() if skewed else TL.default_codebook(21)
     assert book.decode_probes == (2 if skewed else 1)
     codes, payload, nbits, slots = _k_slots(book, cuda)
@@ -316,12 +320,22 @@ def test_huffman_decode_kernels_match_plain_on_card(skewed, cuda):
     assert torch.equal(lut, codes)
     assert {k: v for k, v in runtime.launches.items() if v} == {
         "huffman_decode": 1, "huffman_attn_scores": 1, "huffman_lut_decode": 1}
+    for S in (1, 40):  # the first S streams of each block: the codes' first S rows
+        runtime.reset_launches()
+        assert torch.equal(huffman_decode.huffman_decode(payload, nbits[:, :S].contiguous(),
+                                                         *tables, 128, max_bits), codes[:, :S])
+        assert {k: v for k, v in runtime.launches.items() if v} == {"huffman_decode": 1}
 
 
 @pytest.mark.cuda
 def test_huffman_walk_edge_cases_on_card(cuda):
     """A zero-bit stream, a truncated stream and a max_bits cut: the walk
-    and the LUT decode on the card equal their plain versions."""
+    and the LUT decode on the card equal their plain versions; and both walk
+    kernels on ``chip_smoke.walk_edge_cases`` with S of 1, 40 and 100 (edge
+    books: the default K and V books, codes past the root-table peek, one
+    symbol, a child rewired to the root; edge streams: a zero-bit stream,
+    max_bits below nbits, budgets past the payload, random words, more
+    symbols than L), one launch a call."""
     book = TL.default_codebook(21)
     _, payload, nbits, _ = _k_slots(book, cuda, nblk=3, seed=5)
     nbits = nbits.clone()
@@ -337,6 +351,21 @@ def test_huffman_walk_edge_cases_on_card(cuda):
     assert torch.equal(huffman_decode.huffman_lut_decode(slots, book.device_lut(cuda), **kw),
                        huffman_decode.huffman_lut_decode_plain(slots, book.device_lut(cuda),
                                                                **kw))
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    for x in chip_smoke.walk_edge_cases(cuda, streams=(1, 40, 100)):
+        args = (x["payload"], x["nbits"], *x["tables"])
+        sc_args = (*args, x["kmn"], x["kst"], x["q"], x["max_bits"])
+        runtime.reset_launches()
+        codes = huffman_decode.huffman_decode(*args, x["L"], x["max_bits"])
+        scores = huffman_decode.huffman_attn_scores(*sc_args, scale=x["scale"])
+        assert {k: v for k, v in runtime.launches.items() if v} == {
+            "huffman_decode": 1, "huffman_attn_scores": 1}, x["name"]
+        assert torch.equal(codes, huffman_decode.huffman_decode_plain(*args, x["L"],
+                                                                      x["max_bits"])), x["name"]
+        want = huffman_decode.huffman_attn_scores_plain(*sc_args, scale=x["scale"])
+        assert float((scores - want).abs().max()) <= 1e-4, x["name"]
 
 
 @pytest.mark.cuda
