@@ -5,8 +5,8 @@
     python3 chip_smoke.py --split-sweep   # phases 1, 2, then the Fetch at S = 1, 2, 4
     python3 chip_smoke.py --walk-parent DIR   # phases 1, 2, then DIR's walk kernels vs these
 
-Phases, in the order they run (11 after 4, 12 after 9, times last); any
-failure exits non-zero before the result lines:
+Phases, in the order they run (11 after 4, 12 after 9, 13 and 14 after
+12, times last); any failure exits non-zero before the result lines:
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the three hand-written kernel libraries from
@@ -70,6 +70,29 @@ failure exits non-zero before the result lines:
    chunks.  Greedy tokens must equal phase 5's and
    phase 9(a)'s packed tokens exactly (the same codes, entropy-coded).  One
    decode step and one chunk of each are profiled as in phase 7.
+13. Serve from shared prompt pages (the prefix cache), on the same weights:
+   8 requests behind one 512-token system prompt (8 blocks), each with a
+   suffix of its own (two share their suffix's first 128 tokens), 32 new
+   tokens each (every total % 64 >= 33, so decode crosses a block).
+   Request 0 runs until it decodes, so its prompt blocks are indexed; then
+   the other 7 arrive.  Packed: (a) prefix on, phase 9(a)'s pool bytes; (b)
+   noshare; (c) off; (d) on, a pool of PREFIX_TIGHT_PAGES pages.  Huffman:
+   (e) on, (f) noshare, (a)'s pool bytes.  The greedy tokens of (a) to (f)
+   must be equal; (a) and (e) must hit 7 times and reuse at least 56
+   blocks, and (a) prefill (b)'s prompt tokens less the reused ones; (d)
+   must evict index blocks and preempt; every pure decode step of (a) and
+   (e) must launch the paged Fetch (packed, or huffman) and, packed, the
+   Store once per layer and nothing else; after each drain only the index
+   holds pages, one reference each, and the invariant auditor is clean.
+   Prints the prompt tokens prefilled, chunks, copy-on-write breaks and
+   each request's TTFT, on against noshare.
+14. Request lifecycle on the same requests: (a) a chaos soak at (d)'s pool,
+   prefix on, a FaultPlan from CHAOS_SEED at every fault site (rates 0.02 to
+   0.2), max_requeues 4, the auditor every step: every request ends eos,
+   length or error, an error names its request, survivors' tokens equal
+   (d)'s, the plan fired; (b) 10 requests for 8 slots at (a)'s pool, one
+   live and one queued request cancelled mid-run: the others' tokens
+   unchanged, the auditor clean, the pool drained to the index's pages.
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
@@ -122,6 +145,15 @@ PAGED_LENS = (280, 350, 420, 490, 560, 630, 700, 750)
 PAGED_NEW = 48
 PB, P_ARENA = 8, 128  # paged kernel checks: rows, arena pages
 TIGHT_PAGES = 40      # preempts (4 times in a CPU run of the same lengths)
+# The prefix-cache phases: 8 requests behind one 512-token system prompt (8
+# blocks), each with a suffix of its own; requests 5 and 6 also share their
+# suffix's first 128 tokens.  Every total % 64 >= 33, so 32 new tokens cross
+# a block boundary in decode.
+SYSTEM_TOKENS = 512
+SUFFIX_LENS = (40, 100, 170, 230, 290, 360, 420, 490)
+PREFIX_NEW = 32
+PREFIX_TIGHT_PAGES = 24  # evicts index blocks and preempts (CPU run of the same lengths)
+CHAOS_SEED = 20260808    # phase 14's fault plan
 
 
 def card_line() -> str:
@@ -919,22 +951,32 @@ def _chunk_profile(cfg, params, server, prompt) -> float:
     return (runtime.launches["huffman_lut_decode"] - n0) / 2
 
 
-def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = False) -> dict:
+def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = False,
+               stagger: bool = False, after=None) -> dict:
     """Serve ``prompts`` through one server, stepping by hand: the launch
     counts of every pure decode step (the kernels that launched, and how
     often), the peak number of live rows, and (``profile``) one decode step
-    with every row live and, after the run, one prefill chunk."""
+    with every row live and, after the run, one prefill chunk.  ``stagger``
+    submits the first prompt alone and the others once it decodes;
+    ``after(server)`` runs on the drained server and its dict joins the
+    result."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.serve.scheduler import Request, Server
 
     server = Server(cfg, params, scfg)
-    handles = [server.submit(Request(prompt=p, max_new_tokens=new_tokens)) for p in prompts]
+    late = list(prompts[1:]) if stagger else []
+    handles = [server.submit(Request(prompt=p, max_new_tokens=new_tokens))
+               for p in prompts[:len(prompts) - len(late)]]
     rows = len(prompts)
     torch.cuda.synchronize()
     runtime.reset_launches()
     peak, per_step, wall, out = 0, set(), 0.0, {}
     while True:
+        if late and server.active:
+            handles += [server.submit(Request(prompt=p, max_new_tokens=new_tokens))
+                        for p in late]
+            late = []
         st0, l0 = server.stats(), dict(runtime.launches)
         if (profile and "profile" not in out and server.active == rows
                 and not server.prefilling and not server.pending):
@@ -964,14 +1006,17 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
             break
     torch.cuda.synchronize()
     st = server.stats()
-    out.update(tokens=[h.result().tokens for h in handles], launches=dict(runtime.launches),
+    results = [h.result() for h in handles]
+    out.update(tokens=[r.tokens for r in results], launches=dict(runtime.launches),
                per_step=per_step, peak=peak, wall=wall, stats=st,
-               ttft=[h.result().ttft_s for h in handles],
+               ttft=[r.ttft_s for r in results],
+               reasons=[r.finish_reason for r in results], errors=[r.error for r in results],
                kv_bytes=server.memory_report()["kv_bytes"])
     n_tok = sum(len(t) for t in out["tokens"])
     out["tok_s"] = n_tok / wall
+    ttfts = [t for t in out["ttft"] if t is not None]
     print(f"  served {n_tok} tokens in {wall:.2f} s of steps: {n_tok / wall:.1f} tok/s, "
-          f"mean ttft {np.mean(out['ttft']):.3f} s, {st['decode_steps']} decode steps, "
+          f"mean ttft {np.mean(ttfts):.3f} s, {st['decode_steps']} decode steps, "
           f"{st['prefill']['chunks']} prefill chunks, peak {peak} rows live, "
           f"{st['preemptions']} preemptions ({st['prefill']['prefill_preemptions']} "
           f"mid-prefill)")
@@ -982,9 +1027,12 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
               f"freed, {p['pages_live']} live at the end")
     print(f"  launches: {out['launches']}; per pure decode step: "
           f"{[dict(x) for x in sorted(per_step)]}")
-    for toks in out["tokens"]:
-        if (toks.shape != (new_tokens,) or toks.min() < 0 or toks.max() >= cfg.vocab_size):
-            raise AssertionError(f"bad output: {toks}")
+    for toks, why in zip(out["tokens"], out["reasons"]):
+        if ((why == "length" and toks.shape != (new_tokens,)) or len(toks) > new_tokens
+                or (len(toks) and (toks.min() < 0 or toks.max() >= cfg.vocab_size))):
+            raise AssertionError(f"bad output ({why}): {toks}")
+    if after is not None:
+        out.update(after(server))
     if profile:
         if "profile" not in out:
             raise AssertionError("no step had every row live to profile")
@@ -1113,6 +1161,183 @@ def phase_huffman_serve(report: dict, cfg, params) -> None:
         per_step=n_layers, page_b=page_b, lut_per_chunk=out["dense"]["lut_per_chunk"])
 
 
+def prefix_prompts(cfg) -> list:
+    """Phase 13's requests: the system prompt, then each suffix."""
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_TOKENS)
+    suffixes = [rng.integers(0, cfg.vocab_size, n) for n in SUFFIX_LENS]
+    suffixes[6][:128] = suffixes[5][:128]
+    return [np.concatenate([system, x]).astype(np.int32) for x in suffixes]
+
+
+def drained(server) -> dict:
+    """After a drain: only the index holds pages, one reference each (none
+    without an index), and the invariant auditor is clean."""
+    from repro_torch.serve.faults import InvariantAuditor
+
+    n_index = server.index.n_blocks if server.index is not None else 0
+    refs = sorted(set(server.pool._ref.values()))
+    if server.pool.live_pages != n_index or refs not in ([], [1]):
+        raise AssertionError(f"drained pool: {server.pool.live_pages} live pages, index "
+                             f"{n_index} blocks, refcounts {refs}")
+    InvariantAuditor(server).check()
+    return {"index_blocks": n_index}
+
+
+def phase_prefix_serve(report: dict, cfg, params) -> None:
+    """Phase 13: the prefix cache on full-width Yi-6B.  Request 0 is served
+    until it decodes (its prompt blocks enter the index), then the other 7
+    arrive.  Packed: (a) prefix on, phase 9(a)'s pool bytes; (b) noshare;
+    (c) off; (d) on, a tight pool.  Huffman: (e) on, (f) noshare, (a)'s
+    pool bytes.  Tokens must be equal across all six."""
+    import dataclasses
+
+    from repro_torch.core import pool
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ServerConfig
+
+    n_layers = cfg.n_layers
+    hcfg = dataclasses.replace(cfg, cache_layout="huffman")
+    page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim)
+                 for s in M.cache_specs(cfg, 4096))
+    prompts = prefix_prompts(cfg)
+    pool_bytes = report["paged"]["pool_bytes"]
+    base = dict(max_slots=PB, max_seq=4096, attn_backend="fused", cache_mode="paged")
+    print(f"  {len(prompts)} requests of {[len(p) for p in prompts]} tokens behind one "
+          f"{SYSTEM_TOKENS}-token system prompt, {PREFIX_NEW} new tokens each")
+    runs = {}
+    for key, what, c, mode, nbytes in (
+            ("a", "packed, prefix on", cfg, "on", pool_bytes),
+            ("b", "packed, noshare", cfg, "noshare", pool_bytes),
+            ("c", "packed, prefix off", cfg, "off", pool_bytes),
+            ("d", f"packed, prefix on, a pool of {PREFIX_TIGHT_PAGES} pages", cfg, "on",
+             PREFIX_TIGHT_PAGES * page_b),
+            ("e", "huffman, prefix on", hcfg, "on", pool_bytes),
+            ("f", "huffman, noshare", hcfg, "noshare", pool_bytes)):
+        print(f"  ({key}) {what}", flush=True)
+        runs[key] = r = _serve_run(c, params, prompts, ServerConfig(
+            prefix_cache=mode, pool_hbm_bytes=nbytes, **base), PREFIX_NEW, stagger=True,
+            after=drained)
+        px = r["stats"].get("prefix")
+        if px is not None:
+            print(f"  prefix: {px['hits']} hits of {px['lookups']} lookups, {px['hit_blocks']} "
+                  f"blocks ({px['reused_tokens']} tokens) reused, {px['prefill_tokens']} prompt "
+                  f"tokens prefilled, {px['cow_breaks']} copy-on-write breaks, {px['resumes']} "
+                  f"resumes; index {px.get('index')}")
+    for key, r in runs.items():
+        same = sum(int(np.array_equal(x, y)) for x, y in zip(runs["a"]["tokens"], r["tokens"]))
+        if same != len(prompts):
+            raise AssertionError(f"prefix run ({key}): {same}/{len(prompts)} requests with "
+                                 f"(a)'s tokens")
+    print(f"  tokens of (a) to (f): {len(prompts)}/{len(prompts)} requests identical in each")
+    for key in ("a", "e"):
+        px = runs[key]["stats"]["prefix"]
+        if px["hits"] != len(prompts) - 1 or px["hit_blocks"] < 7 * (SYSTEM_TOKENS // T):
+            raise AssertionError(f"prefix run ({key}): {px['hits']} hits, {px['hit_blocks']} "
+                                 f"hit blocks")
+    pa, pb = runs["a"]["stats"]["prefix"], runs["b"]["stats"]["prefix"]
+    if pa["prefill_tokens"] != pb["prefill_tokens"] - pa["reused_tokens"]:
+        raise AssertionError(f"prefilled tokens: on {pa['prefill_tokens']}, noshare "
+                             f"{pb['prefill_tokens']}, reused {pa['reused_tokens']}")
+    d = runs["d"]["stats"]
+    if d["prefix"]["index"]["evicted_blocks"] < 1 or d["preemptions"] < 1:
+        raise AssertionError(f"tight pool: {d['prefix']['index']['evicted_blocks']} index "
+                             f"blocks evicted, {d['preemptions']} preemptions")
+    for key, want in (("a", {(("fused_kv_attn_paged", n_layers), ("pack_encode", n_layers))}),
+                      ("e", {(("fused_kv_attn_huffman_paged", n_layers),)})):
+        if runs[key]["per_step"] != want:
+            raise AssertionError(f"prefix run ({key}): decode step launches "
+                                 f"{runs[key]['per_step']}, expected {want}")
+    print(f"  (d): {d['prefix']['index']['evicted_blocks']} index blocks evicted, "
+          f"{d['preemptions']} preemptions ({d['prefill']['prefill_preemptions']} mid-prefill), "
+          f"{d['prefix']['resumes']} resumes; auditor clean after each drain")
+    for a, b, layout in (("a", "b", "packed"), ("e", "f", "huffman")):
+        sa, sb = runs[a]["stats"], runs[b]["stats"]
+        print(f"  {layout}, on vs noshare: prompt tokens prefilled {sa['prefix']['prefill_tokens']}"
+              f" vs {sb['prefix']['prefill_tokens']}, chunks {sa['prefill']['chunks']} vs "
+              f"{sb['prefill']['chunks']}, copy-on-write breaks {sa['prefix']['cow_breaks']}")
+        print(f"    ttft s, request 0 to 7, on:      "
+              + " ".join(f"{t:.3f}" for t in runs[a]["ttft"]))
+        print(f"    ttft s, request 0 to 7, noshare: "
+              + " ".join(f"{t:.3f}" for t in runs[b]["ttft"]))
+    print(f"  card: {card_line()}")
+    report["prefix"] = dict(prompts=prompts, tokens=runs["a"]["tokens"],
+                            tight_tokens=runs["d"]["tokens"],
+                            tight_bytes=PREFIX_TIGHT_PAGES * page_b, pool_bytes=pool_bytes,
+                            launches=runs["a"]["launches"],
+                            launches_huffman=runs["e"]["launches"])
+
+
+def phase_lifecycle(report: dict, cfg, params) -> None:
+    """Phase 14: (a) a chaos soak over phase 13's requests at (d)'s pool,
+    prefix on, a fault plan at every site from a printed seed; (b) one live
+    and one queued request cancelled mid-run."""
+    import torch
+    from repro_torch.serve.faults import FAULT_SITES, FaultPlan, InvariantAuditor
+    from repro_torch.serve.scheduler import Request, Server, ServerConfig
+
+    x = report["prefix"]
+    prompts = x["prompts"]
+    base = dict(max_slots=PB, max_seq=4096, attn_backend="fused", cache_mode="paged",
+                prefix_cache="on")
+    rng = np.random.default_rng(CHAOS_SEED)
+    rates = {s: round(float(u), 3)
+             for s, u in zip(FAULT_SITES, rng.uniform(0.02, 0.2, len(FAULT_SITES)))}
+    plan = FaultPlan(seed=CHAOS_SEED, rates=rates)
+    print(f"  (a) chaos soak: FaultPlan(seed={CHAOS_SEED}, rates={rates}), max_requeues 4, "
+          f"audit every step", flush=True)
+    r = _serve_run(cfg, params, prompts, ServerConfig(
+        pool_hbm_bytes=x["tight_bytes"], faults=plan, max_requeues=4, audit_every=1, **base),
+        PREFIX_NEW, stagger=True, after=drained)
+    print(f"  fired {plan.stats()['fired']}; finish reasons {r['reasons']}; lifecycle "
+          f"{r['stats']['lifecycle']}")
+    if not plan.fired:
+        raise AssertionError("the soak's fault plan never fired")
+    for i, (why, err, toks) in enumerate(zip(r["reasons"], r["errors"], r["tokens"])):
+        if why not in ("eos", "length", "error"):
+            raise AssertionError(f"soak: request {i} ended {why!r}")
+        if why == "error":
+            if not err or f"request {i}" not in err:
+                raise AssertionError(f"soak: request {i}'s error does not name it: {err!r}")
+        elif not np.array_equal(toks, x["tight_tokens"][i]):
+            raise AssertionError(f"soak: request {i}'s tokens differ from the fault-free run")
+    n_ok = sum(w != "error" for w in r["reasons"])
+    print(f"  soak: {n_ok}/{len(prompts)} survivors with the fault-free tokens, "
+          f"{len(prompts) - n_ok} failed with their request named; auditor clean")
+
+    print("  (b) cancel one live and one queued request", flush=True)
+    server = Server(cfg, params, ServerConfig(pool_hbm_bytes=x["pool_bytes"], audit_every=1,
+                                              **base))
+    extra = [prompts[1], prompts[2]]  # 10 requests for 8 slots: 2 queue
+    handles = [server.submit(Request(prompt=p, max_new_tokens=PREFIX_NEW))
+               for p in prompts + extra]
+    live, queued = handles[3], handles[9]
+    while not (live in server._slots and live._toks):
+        server.step()
+    if queued not in server._queue:
+        raise AssertionError("request 9 left the queue before the cancel")
+    if not (live.cancel() and queued.cancel()):
+        raise AssertionError("cancel() of an unfinished request returned False")
+    InvariantAuditor(server).check()
+    server.run()
+    torch.cuda.synchronize()
+    drained(server)
+    res = [h.result() for h in handles]
+    want = list(x["tokens"]) + [x["tokens"][1], x["tokens"][2]]
+    for i, (h, w) in enumerate(zip(res, want)):
+        if i in (3, 9):
+            if h.finish_reason != "cancelled":
+                raise AssertionError(f"request {i} ended {h.finish_reason!r}, not cancelled")
+        elif not np.array_equal(h.tokens, w):
+            raise AssertionError(f"request {i}'s tokens changed by the cancels")
+    print(f"  cancelled request 3 live after {len(res[3].tokens)} tokens and request 9 queued "
+          f"({len(res[9].tokens)} tokens); the other 8 requests' tokens unchanged, "
+          f"lifecycle {server.stats()['lifecycle']}, auditor clean, pool drained to the "
+          f"index's {server.index.n_blocks} pages")
+    del server
+    torch.cuda.empty_cache()
+
+
 def fetch_cases() -> dict:
     """Phase 10's Fetch inputs, packed and huffman: the dense run's last
     decode-step lengths, the paged run's last lengths on a shuffled arena
@@ -1173,13 +1398,15 @@ def fetch_times(report: dict, cases: dict) -> list[dict]:
             ("fused_kv_attn", "src/repro/kernels/fused_kv_attn.py:57", ("packed", "dense"),
              report["launches"]["fused_kv_attn"], report["fetch_err"]),
             ("fused_kv_attn_paged", "src/repro/kernels/fused_kv_attn.py:113", ("packed", "paged"),
-             report["paged"]["launches"]["fused_kv_attn_paged"], report["fetch_paged_err"]),
+             report["paged"]["launches"]["fused_kv_attn_paged"]
+             + report["prefix"]["launches"]["fused_kv_attn_paged"], report["fetch_paged_err"]),
             ("fused_kv_attn_huffman", "src/repro/core/layouts.py:822", ("huffman", "dense"),
              report["huffman"]["launches_dense"]["fused_kv_attn_huffman"],
              report["fetch_huffman_err"]),
             ("fused_kv_attn_huffman_paged", "src/repro/core/layouts.py:822",
              ("huffman", "paged"),
-             report["huffman"]["launches_paged"]["fused_kv_attn_huffman_paged"],
+             report["huffman"]["launches_paged"]["fused_kv_attn_huffman_paged"]
+             + report["prefix"]["launches_huffman"]["fused_kv_attn_huffman_paged"],
              report["fetch_huffman_paged_err"])):
         r = rows[layout, mode]
         entries.append({"name": name, "route": "cuda",
@@ -1248,9 +1475,10 @@ def phase_times(report: dict) -> list[dict]:
         {"name": "pack_encode", "route": "cuda",
          "source": "src/repro_torch/csrc/pack_encode.cu",
          "replaces": "src/repro/kernels/pack_encode.py:46",
-         # the Store runs on both paths: the dense and the ample paged run
+         # the Store's paths: the dense, the ample paged and the prefix-on run
          "launches": report["launches"]["pack_encode"]
-         + report["paged"]["launches"]["pack_encode"],
+         + report["paged"]["launches"]["pack_encode"]
+         + report["prefix"]["launches"]["pack_encode"],
          "max_abs_err": report["store_err"],
          "ms": s_row["ms"], "plain_ms": s_row["plain_ms"], "bound_ms": s_row["bound_ms"],
          "bound_by": s_row["bound_by"], "library_ms": None},
@@ -1384,7 +1612,9 @@ def huffman_times(report: dict, case: dict) -> list[dict]:
     entries.append({"name": "huffman_lut_decode", "route": "cuda",
                     "source": "src/repro_torch/csrc/huffman_decode.cu", "replaces": None,
                     "launches": hr["launches_dense"]["huffman_lut_decode"]
-                    + hr["launches_paged"]["huffman_lut_decode"], "max_abs_err": lut_err,
+                    + hr["launches_paged"]["huffman_lut_decode"]
+                    + report["prefix"]["launches_huffman"]["huffman_lut_decode"],
+                    "max_abs_err": lut_err,
                     "ms": k_ms, "plain_ms": pl_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None})
     return entries
@@ -1516,6 +1746,10 @@ def main() -> int:
     phase_paged_serve(report, cfg, params)
     print("[12] serve full-width Yi-6B, huffman", flush=True)
     phase_huffman_serve(report, cfg, params)
+    print("[13] serve full-width Yi-6B from shared prompt pages (prefix cache)", flush=True)
+    phase_prefix_serve(report, cfg, params)
+    print("[14] request lifecycle: chaos soak and cancel", flush=True)
+    phase_lifecycle(report, cfg, params)
     del params
     torch.cuda.empty_cache()
     print("[10] kernel times", flush=True)

@@ -366,6 +366,34 @@ def install_row(dst, src, row: int, pages: torch.Tensor):
     return dst
 
 
+def gather_pages(cache, pages: torch.Tensor, n_flushed: int):
+    """Prefix-hit seed: cached arena pages as a batch-1 *dense* cache at a
+    block boundary (DESIGN.md §11).
+
+    ``pages`` is int32 ``[NB]``: the physical page of logical block ``i``
+    for the first ``n_flushed`` blocks (``-1`` beyond; those slots gather
+    page 0, which ``n_flushed`` keeps out of sight).  The result is the
+    state a solo block-chunked prefill of those blocks would have built:
+    stores copied bit for bit out of the arena, raw buffer empty, so a
+    chunked prefill resumes at block ``n_flushed``.  A new cache; the live
+    one is untouched."""
+    from repro_torch.core import cache as kvcache  # late: cache imports this module
+
+    idx = torch.clamp(pages, 0, cache.spec.pool_pages - 1).long()
+    dev = cache.k_buf.device
+    stores = {}
+    for f in STORE_FIELDS:
+        a = getattr(cache, f)
+        stores[f] = a[:, :, idx] if a.dim() >= 4 else a.clone()  # dummies pass
+    return kvcache.LayerKVCache(
+        **stores,
+        k_buf=torch.zeros_like(cache.k_buf[:1]), v_buf=torch.zeros_like(cache.v_buf[:1]),
+        n_flushed=torch.full((1,), int(n_flushed), dtype=torch.int32, device=dev),
+        buf_len=torch.zeros((1,), dtype=torch.int32, device=dev),
+        page_tab=torch.zeros((1,), dtype=torch.int32, device=dev),
+        spec=dataclasses.replace(cache.spec, mode="dense", pool_pages=0))
+
+
 def assign_pages(cache, rows: torch.Tensor, slots: torch.Tensor, pages: torch.Tensor):
     """Point ``page_tab[rows[i], slots[i]] = pages[i]`` (int ``[n]`` each).
     The scheduler calls this just before the decode step that flushes those

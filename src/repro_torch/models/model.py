@@ -126,6 +126,19 @@ def clear_cache_row(state, row: int):
     return state
 
 
+def gather_prefix_state(state, pages: torch.Tensor, n_blocks: int):
+    """Seed a batch-1 *dense* decode state from cached arena pages, the
+    prefix-hit path of a server whose chunks run on a private state
+    (DESIGN.md §11).  ``pages``: int32 [NB], the physical page of logical
+    block ``i`` for the first ``n_blocks`` blocks (-1 beyond).  Every
+    layer's cache copies its blocks bit for bit out of the live arena with
+    an empty raw buffer, so ``prefill_chunk`` resumes at block ``n_blocks``
+    as if it had chunked the whole prefix itself.  The single-card server
+    chunks through the live arena (``chunk_state_view``) and does not call
+    this."""
+    return {"kv": [pool.gather_pages(c, pages, n_blocks) for c in state["kv"]]}
+
+
 def chunk_state_view(state, pages: torch.Tensor, pos0: int):
     """Batch-1 view of one row's chunked prefill over the LIVE paged state
     (DESIGN.md §13): every layer's view shares its arena, so

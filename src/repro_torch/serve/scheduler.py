@@ -1,5 +1,6 @@
 """Continuous-batching scheduler over the compressed KV cache (the port of
-``repro.serve.scheduler``), dense and paged.
+``repro.serve.scheduler``), dense and paged, with the prefix cache and the
+request lifecycle.
 
 The server owns a ring of decode **slots** over one live decode state and
 an admission queue:
@@ -32,17 +33,37 @@ row chunks through a batch-1 view of the live arena (``model.
 chunk_state_view``), so each full chunk is encoded straight into its pooled
 page, reserved one chunk ahead (DESIGN.md §13).  A page-fault sweep assigns
 each decoding row its next page just before the flush that needs it.  When
-the pool runs dry the youngest page holder is preempted: its pages are
-freed, its generated tokens cleared, and it is requeued at the head, where
-it replays its prompt; greedy decode then regenerates the same tokens.  The
-host keeps a mirror of the page table (``_pt_host``) and of every row's
-position, so the sweep and the table updates read nothing from the device.
+the pool runs dry the reclaim ladder evicts cold prefix-index blocks, then
+preempts the youngest page holder: its pages are released, its generated
+tokens cleared, and it is requeued at the head; greedy decode then
+regenerates the same tokens.  The host keeps a mirror of the page table
+(``_pt_host``) and of every row's position, so the sweep and the table
+updates read nothing from the device.
+
+``ServerConfig.prefix_cache`` (DESIGN.md §11) shares prompt pages: a radix
+index (``serve.prefix``) maps block-aligned prompt prefixes to live
+refcounted arena pages; a hit splices the cached page ids into the new
+row's page table and the chunk loop starts at the first block that
+missed; a row whose flush lands on a shared page (a sliding-window ring
+wrap) copies on write; a preempted row parks its prompt blocks in the
+index and resumes from them.  Shared pages go through the same Fetch and
+Store kernels as any other page.
+
+The request lifecycle (DESIGN.md §15) is total: a request ends ``eos``,
+``length``, ``cancelled`` (``Handle.cancel``), ``deadline``
+(``Request.deadline_s`` / ``ServerConfig.default_deadline_s``) or ``error``
+(over its ``max_requeues`` budget), and every abnormal end goes through one
+cleanup path that releases its pages.  ``max_pending`` bounds the queue
+(``backpressure`` "reject" raises ``QueueFull``, "block" pumps ``step``), a
+``FaultPlan`` forces the pessimistic branch at six named sites, the
+``InvariantAuditor`` checks the bookkeeping every ``audit_every`` steps, and
+a server that makes no progress for ``stall_steps`` steps raises
+``ServeError``.
 
 The server is cooperative: ``Handle.result`` / ``Handle.tokens`` pump
 ``Server.step`` until their request completes; ``Server.run`` drains.
 
-Options that belong to later slices of the port (the prefix cache,
-sharding, event tracing, fault injection, deadlines and backpressure) raise
+Options of later slices of the port (sharding and event tracing) raise
 ``NotImplementedError``.
 """
 
@@ -61,6 +82,8 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.serve.faults import InvariantAuditor, QueueFull, ServeError
+from repro_torch.serve.prefix import PrefixIndex
 
 
 @dataclasses.dataclass
@@ -68,7 +91,10 @@ class Request:
     prompt: np.ndarray  # int32 [S]
     max_new_tokens: int = 32
     eos_id: int | None = None
-    deadline_s: float | None = None  # a later slice (lifecycle)
+    # Wall-clock bound from submit: a request still queued, prefilling or
+    # decoding past it retires with finish_reason "deadline" at the next
+    # step.  None falls back to ServerConfig.default_deadline_s.
+    deadline_s: float | None = None
 
 
 @dataclasses.dataclass
@@ -77,21 +103,19 @@ class Result:
     prompt_len: int
     gen_s: float         # wall time from prefill end to last token
     prefill_s: float     # this request's own prefill wall time
-    finish_reason: str = "length"  # "eos" | "length"
+    # "eos" | "length" end normally; "error" failed alone (``error`` says
+    # why), "cancelled" by Handle.cancel(), "deadline" past its bound.
+    finish_reason: str = "length"
     queue_wait_s: float = 0.0
-    ttft_s: float = 0.0            # submit to first token
+    ttft_s: float | None = 0.0     # submit to first token; None without tokens
     token_times: tuple = ()        # monotonic emission time of every token
+    error: str | None = None
 
 
 # Options of later slices: field -> (the value this slice serves, the slice).
 _LATER = {
-    "prefix_cache": ("off", "the prefix cache"),
     "mesh": (None, "multi-GPU sharded serving"),
-    "trace": ("off", "lifecycle, faults and telemetry"),
-    "faults": (None, "lifecycle, faults and telemetry"),
-    "audit_every": (0, "lifecycle, faults and telemetry"),
-    "max_pending": (None, "lifecycle, faults and telemetry (backpressure)"),
-    "default_deadline_s": (None, "lifecycle, faults and telemetry (deadlines)"),
+    "trace": ("off", "event tracing and profiling"),
 }
 
 
@@ -107,23 +131,37 @@ class ServerConfig:
     # the model config's own (default "auto": the Fetch kernel on the card).
     attn_backend: str | None = None
     cache_mode: str | None = None  # None keeps the config's; "dense" | "paged"
+    # Paged mode: the arena's byte budget across all layers; None = the
+    # dense-equivalent footprint (max_slots full rings).
+    pool_hbm_bytes: int | None = None
+    # Prefix cache over compressed pages (paged mode only): "off"; "on"
+    # (lookup, splice, park on preempt); "noshare" (the same chunked
+    # admission with lookup and insert disabled: the accounting baseline,
+    # bit-identical to "on").
+    prefix_cache: str = "off"
+    mesh: object | None = None     # a later slice
     # "chunked" interleaves prompt chunks with decode; "solo" drains every
     # chunk at admission (the blocking baseline, same tokens).
     prefill_mode: str = "chunked"
     # Per-step chunked-prefill token budget, a positive multiple of the cache
     # block_size; None = 8 blocks.
     prefill_chunk_tokens: int | None = None
-    # Paged mode: the arena's byte budget across all layers; None = the
-    # dense-equivalent footprint (max_slots full rings).
-    pool_hbm_bytes: int | None = None
-    # Later slices of the port (raise NotImplementedError when set).
-    prefix_cache: str = "off"
-    mesh: object | None = None
-    trace: str = "off"
-    faults: object = None
-    audit_every: int = 0
+    trace: str = "off"             # a later slice
+    # Request lifecycle (DESIGN.md §15).  Preemptions a request may take
+    # before it fails alone ("error"); the oldest request in the server is
+    # exempt, so the workload drains instead of thrashing.
+    max_requeues: int = 32
+    # Bounded admission queue: past ``max_pending`` queued requests, submit
+    # applies ``backpressure`` ("reject" raises QueueFull, "block" steps the
+    # server until the queue drains below the cap).  None = unbounded.
     max_pending: int | None = None
-    default_deadline_s: float | None = None
+    backpressure: str = "reject"
+    default_deadline_s: float | None = None  # for requests without their own
+    faults: object = None          # a serve.faults.FaultPlan, or None
+    audit_every: int = 0           # InvariantAuditor every N steps (0 = off)
+    # No-progress detector: this many steps with work left, no progress and
+    # no deadline pending raise ServeError.
+    stall_steps: int = 256
 
     def __post_init__(self):
         for name, (served, where) in _LATER.items():
@@ -140,6 +178,21 @@ class ServerConfig:
             raise ValueError(
                 "prefill_chunk_tokens must be a positive multiple of the "
                 f"cache block_size, got {self.prefill_chunk_tokens}")
+        if self.max_requeues < 0:
+            raise ValueError(f"max_requeues must be >= 0, got {self.max_requeues}")
+        if self.max_pending is not None and self.max_pending < 1:
+            raise ValueError(
+                f"max_pending must be >= 1 (or None), got {self.max_pending}")
+        if self.backpressure not in ("reject", "block"):
+            raise ValueError(
+                f"backpressure must be reject|block, got {self.backpressure!r}")
+        if self.default_deadline_s is not None and self.default_deadline_s <= 0:
+            raise ValueError(
+                f"default_deadline_s must be > 0, got {self.default_deadline_s}")
+        if self.audit_every < 0:
+            raise ValueError(f"audit_every must be >= 0, got {self.audit_every}")
+        if self.stall_steps < 1:
+            raise ValueError(f"stall_steps must be >= 1, got {self.stall_steps}")
 
 
 class Handle:
@@ -153,6 +206,9 @@ class Handle:
         self.id = -1
         self._toks: list[int] = []
         self._finish: str | None = None
+        self._error: str | None = None
+        self._requeues = 0  # preemptions spent against scfg.max_requeues
+        self._hit_pages: list[int] = []  # _can_admit's lookup, spliced at start
         self._prefill_s = 0.0
         self._t_submit = time.monotonic()
         self._t_first: float | None = None  # first prefill work
@@ -163,6 +219,20 @@ class Handle:
     @property
     def done(self) -> bool:
         return self._finish is not None
+
+    @property
+    def error(self) -> str | None:
+        """Why this request failed (finish_reason "error"), else None."""
+        return self._error
+
+    def cancel(self) -> bool:
+        """Retire this request now, queued, PREFILLING or decoding, with
+        finish_reason "cancelled", releasing its pages.  False if it had
+        already finished."""
+        if self.done:
+            return False
+        self._server._cancel(self)
+        return True
 
     def tokens(self) -> Iterator[int]:
         """Stream generated token ids as they are produced."""
@@ -179,15 +249,21 @@ class Handle:
         """Block (drive the server) until this request finishes."""
         while not self.done:
             self._server.step()
+        t_first = self._t_first if self._t_first is not None else self._t_submit
+        # Retired before it decoded (still queued, or before its first
+        # token): no decode wall time.
+        gen_s = (self._t_end - self._t_start
+                 if self._t_start is not None and self._t_end is not None else 0.0)
         return Result(
             tokens=np.asarray(self._toks, np.int32),
             prompt_len=len(self.request.prompt),
-            gen_s=self._t_end - self._t_start,
+            gen_s=gen_s,
             prefill_s=self._prefill_s,
             finish_reason=self._finish,
-            queue_wait_s=self._t_first - self._t_submit,
-            ttft_s=self._token_times[0] - self._t_submit,
+            queue_wait_s=t_first - self._t_submit,
+            ttft_s=(self._token_times[0] - self._t_submit if self._token_times else None),
             token_times=tuple(self._token_times),
+            error=self._error,
         )
 
     def _push(self, tok: int) -> bool:
@@ -218,17 +294,21 @@ class Handle:
 
 @dataclasses.dataclass
 class _PrefillTask:
-    """One PREFILLING row's progress.  Dense mode: ``state`` is its private
-    batch-1 decode state, spliced into the slot when the last chunk has run.
-    Paged mode: ``state`` is None; each chunk runs through a batch-1 view of
-    the live arena and its blocks land in the row's pooled pages
-    (``Server._pt_host[row]``), while the device page-table row stays
-    cleared until the finishing chunk installs it."""
+    """One PREFILLING row's progress.  ``pos`` is block-aligned between
+    steps.  Dense mode: ``state`` is its private batch-1 decode state,
+    spliced into the slot when the last chunk has run.  Paged mode:
+    ``state`` is None; each chunk runs through a batch-1 view of the live
+    arena and its blocks land in the row's pooled pages
+    (``Server._pt_host[row]``), the first ``len(hit)`` of them spliced from
+    the prefix index, while the device page-table row stays cleared until
+    the finishing chunk installs it."""
 
     handle: Handle
     row: int
-    prompt: np.ndarray
-    pos: int     # tokens chunked so far (block-aligned between steps)
+    forced: np.ndarray   # the tokens the row's cache must come to hold
+    n: int
+    pos: int             # tokens chunked so far (hits included)
+    hit: list            # prefix-cache pages spliced below ``pos``
     state: dict | None
     chunks: int = 0
 
@@ -276,6 +356,17 @@ class Server:
         self._pf = {k: self.metrics.counter(f"serve.prefill.{k}")
                     for k in ("prefill_tokens", "chunks", "coscheduled_tokens",
                               "stalled_decode_steps", "prefill_preemptions")}
+        # Request lifecycle (DESIGN.md §15): terminal-state counters, the
+        # fault plan, the periodic audit, and the no-progress detector.
+        self._lc = {k: self.metrics.counter(f"serve.{k}")
+                    for k in ("failures", "cancelled", "deadline_exceeded",
+                              "requeues", "rejected")}
+        self.faults = scfg.faults
+        self.auditor = InvariantAuditor(self) if scfg.audit_every else None
+        self._steps = 0
+        self._progress = 0   # bumps on any token, chunk, admission, retirement
+        self._stall = 0      # consecutive steps with work left and no progress
+        self._has_deadlines = scfg.default_deadline_s is not None
 
         # The dense twin of every layer's spec: uniform blocks are what
         # block-chunked admission (and one page id for all layers) needs.
@@ -323,12 +414,35 @@ class Server:
         else:
             self.state = M.init_decode_state(cfg, B, scfg.max_seq, device=self.device)
 
+        if scfg.prefix_cache not in ("off", "on", "noshare"):
+            raise ValueError(
+                f"prefix_cache must be off|on|noshare, got {scfg.prefix_cache!r}")
+        self.prefix_mode = scfg.prefix_cache != "off"
+        self._share = scfg.prefix_cache == "on"
+        self.index = None
+        if self.prefix_mode:
+            if not self.paged:
+                raise ValueError(
+                    "prefix_cache shares pages of the pooled arena; it needs "
+                    "cache_mode='paged'")
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    "prefix_cache needs a pure-KV decode state (block-chunked "
+                    f"prefill has no {cfg.family!r} step)")
+            if self._share:
+                # One index (one data shard), under the reference's names.
+                self.index = PrefixIndex(T)
+                self.metrics.register("prefix.index.shard0.inserted_blocks",
+                                      self.index.m_inserted_blocks)
+                self.metrics.register("prefix.index.shard0.evicted_blocks",
+                                      self.index.m_evicted_blocks)
+            self._pfx = {k: self.metrics.counter(f"prefix.{k}")
+                         for k in ("lookups", "hits", "hit_blocks", "reused_tokens",
+                                   "prefill_tokens", "prefill_attn_pairs", "resumes",
+                                   "resume_reused_blocks", "cow_breaks")}
+
     # -- intake ---------------------------------------------------------------
     def submit(self, request: Request) -> Handle:
-        if request.deadline_s is not None:
-            raise NotImplementedError(
-                "request deadlines belong to a later slice of the port "
-                "(lifecycle, faults and telemetry)")
         if request.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if len(request.prompt) < 1:
@@ -345,6 +459,21 @@ class Server:
                 raise ValueError(
                     f"request needs up to {need} block pages but the pool holds "
                     f"{self.pool.n_pages}; raise ServerConfig.pool_hbm_bytes")
+        if request.deadline_s is not None:
+            if request.deadline_s <= 0:
+                raise ValueError(f"deadline_s must be > 0, got {request.deadline_s}")
+            self._has_deadlines = True
+        cap = self.scfg.max_pending
+        if cap is not None and len(self._queue) >= cap:
+            # Bounded admission: reject, or step the server until the queue
+            # drains below the cap (the no-progress detector bounds the wait).
+            if self.scfg.backpressure == "reject":
+                self._lc["rejected"].inc()
+                raise QueueFull(
+                    f"admission queue is full ({len(self._queue)} pending, "
+                    f"max_pending={cap}); backpressure='reject'")
+            while len(self._queue) >= cap:
+                self.step()
         h = Handle(self, request)
         h.id = self._next_req_id
         self._next_req_id += 1
@@ -358,11 +487,6 @@ class Server:
         spec = self._spec0
         total = (len(request.prompt) + request.max_new_tokens - 1) // spec.block_size
         return min(total, spec.n_blocks)
-
-    def _prefill_pages(self, request: Request) -> int:
-        """Pages the admission prefill writes (full prompt blocks, ring-capped)."""
-        spec = self._spec0
-        return min(len(request.prompt) // spec.block_size, spec.n_blocks)
 
     @property
     def active(self) -> int:
@@ -381,7 +505,89 @@ class Server:
         """Total rows evicted and requeued."""
         return self._preemptions.value
 
+    # -- request lifecycle: failure isolation, cancel, deadlines ----------------
+    def _fault(self, site: str) -> bool:
+        """Consult the fault plan at one named injection site."""
+        return self.faults is not None and self.faults.fire(site)
+
+    def _all_handles(self) -> list[Handle]:
+        """Every unfinished request the server owns, in no order."""
+        return ([*self._queue]
+                + [t.handle for t in self._prefill_tasks.values()]
+                + [s for s in self._slots if s is not None])
+
+    def _oldest_live_id(self) -> int:
+        """Lowest submit id still in the server: the request the requeue
+        budget never fails (submit ids never change, unlike ``_row_seq``)."""
+        return min((h.id for h in self._all_handles()), default=-1)
+
+    def _finalize(self, handle: Handle, reason: str, error: str | None = None) -> None:
+        """Mark ``handle`` terminal with ``reason`` ("error" | "cancelled" |
+        "deadline") after ``_evict`` released what it held."""
+        handle._finish = reason
+        handle._error = error
+        if handle._t_end is None:
+            handle._t_end = time.monotonic()
+        counter = {"error": "failures", "cancelled": "cancelled",
+                   "deadline": "deadline_exceeded"}[reason]
+        self._lc[counter].inc()
+        self._progress += 1  # a retirement is progress, even an abnormal one
+
+    def _evict(self, handle: Handle) -> None:
+        """Remove an unfinished request from the queue, its PREFILLING task
+        or its decode slot, releasing its pages and its device page-table
+        row.  Progress is dropped, not parked in the prefix index."""
+        try:
+            self._queue.remove(handle)
+            return
+        except ValueError:
+            pass
+        for row, task in self._prefill_tasks.items():
+            if task.handle is handle:
+                del self._prefill_tasks[row]
+                if self.paged:
+                    # The device row was never installed mid-prefill.
+                    self._release_host_pages(row)
+                return
+        for row, h in enumerate(self._slots):
+            if h is handle:
+                self._slots[row] = None
+                if self.paged:
+                    self._release_row(row)
+                else:
+                    M.clear_cache_row(self.state, row)
+                return
+
+    def _cancel(self, handle: Handle) -> None:
+        """``Handle.cancel``: evict, then finalize as "cancelled"."""
+        self._evict(handle)
+        self._finalize(handle, "cancelled")
+
+    def _deadline_of(self, handle: Handle) -> float | None:
+        d = handle.request.deadline_s
+        return d if d is not None else self.scfg.default_deadline_s
+
+    def _sweep_deadlines(self) -> None:
+        """Retire every request past its wall-clock bound (from submit),
+        whatever its state.  Runs at the top of each step, so a queued
+        request cannot outlive its deadline by the depth of the queue."""
+        if not self._has_deadlines:
+            return
+        now = time.monotonic()
+        for handle in self._all_handles():
+            d = self._deadline_of(handle)
+            if d is not None and now - handle._t_submit > d:
+                self._evict(handle)
+                self._finalize(handle, "deadline")
+
     # -- admission --------------------------------------------------------------
+    def _forced(self, handle: Handle) -> np.ndarray:
+        """The tokens a (re-)admitted request's cache must come to hold.
+        Preemption clears generated tokens (decode replay regenerates them
+        bit for bit), so this is the prompt."""
+        return np.concatenate([np.asarray(handle.request.prompt, np.int32),
+                               np.asarray(handle._toks, np.int32)])
+
     def _pop_next(self) -> Handle:
         if self.scfg.policy == "ljf":
             # max() keeps the first maximum: equal budgets leave in arrival order.
@@ -396,112 +602,244 @@ class Server:
         """Memory-pressure admission (paged): the pages the first step's
         chunks flush, plus one page of decode headroom, must be free.  Not
         the request's whole lifetime: that is what lets slots oversubscribe,
-        and preemption covers the over-commitment later.  Chunked admission
-        reserves pages one chunk ahead of each flush, so a long prompt can
-        start before the pool could hold all of it."""
+        and preemption covers the over-commitment later.  With sharing on,
+        the prefix index's hit is stashed on the handle and discounted (its
+        blocks are spliced, not prefilled), and cold index blocks are evicted
+        before the queue head is parked."""
         if not self.paged:
             return True
-        occupied = self._prefill_pages(handle.request)
+        if self._fault("pool_alloc"):
+            return False  # injected exhaustion: park the queue head
+        T, nb = self._spec0.block_size, self._spec0.n_blocks
+        forced = self._forced(handle)
+        n_full = len(forced) // T
+        hit: list[int] = []
+        if self._share and n_full <= nb:
+            # Cap below the forced length so one token is left to run: its
+            # logits give the next token.
+            hit = self.index.lookup(forced, min((len(forced) - 1) // T, nb))
+        handle._hit_pages = hit
+        occupied = max(min(n_full, nb) - len(hit), 0)
         if self.prefill_chunked:
-            occupied = min(self._chunk_budget // self._chunk_t, occupied)
-        return self.pool.free_pages >= min(occupied + 1, self.pool.n_pages)
+            # Pages are reserved one chunk ahead of each flush, so a long
+            # prompt can start before the pool could hold all of it.
+            occupied = min(self._chunk_budget // T, occupied)
+        need = min(occupied + 1, self.pool.n_pages)
+        if (self.pool.free_pages < need and self._share
+                and not self._fault("prefix_evict")):
+            # The hit path was just stamped most recent, and is protected as
+            # well: the row does not hold its pages yet.
+            self.index.evict(self.pool, need, protect=hit)
+        return self.pool.free_pages >= need
 
-    def _start_prefill(self, handle: Handle, row: int) -> _PrefillTask:
+    def _start_prefill(self, handle: Handle, row: int) -> None:
+        """Claim slot ``row`` as a PREFILLING task: a private batch-1 state
+        (dense) or the live arena (paged), with any prefix hit spliced into
+        the row's page table and retained as the row's own references."""
+        forced = self._forced(handle)
+        n = len(forced)
+        hit, handle._hit_pages = handle._hit_pages, []
+        j = len(hit)
         t0 = time.monotonic()
         if handle._t_first is None:
             handle._t_first = t0
             self._h_queue.observe(t0 - handle._t_submit)
         state = None
         if self.paged:
-            self._pt_host[row] = -1  # pages are reserved one chunk ahead
+            if j:
+                self.pool.retain(hit)
+            pages = np.full(self._spec0.n_blocks, -1, np.int64)
+            pages[:j] = hit  # the rest is reserved one chunk ahead
+            self._pt_host[row] = pages
         else:
             state = M.init_decode_state(self.cfg, 1, self.scfg.max_seq, device=self.device)
-        task = _PrefillTask(handle=handle, row=row,
-                            prompt=np.asarray(handle.request.prompt, np.int64),
-                            pos=0, state=state)
-        self._prefill_tasks[row] = task
+        if self.prefix_mode:
+            if self._share:
+                self._pfx["lookups"].inc()
+            if j:
+                self._pfx["hits"].inc()
+                self._pfx["hit_blocks"].inc(j)
+                self._pfx["reused_tokens"].inc(j * self._chunk_t)
+            if handle._requeues:
+                self._pfx["resumes"].inc()
+                self._pfx["resume_reused_blocks"].inc(j)
+        self._prefill_tasks[row] = _PrefillTask(
+            handle=handle, row=row, forced=forced, n=n, pos=j * self._chunk_t,
+            hit=hit, state=state)
+        self._progress += 1  # an admission is progress
         self._seq += 1
         self._row_seq[row] = self._seq
         # The vacated slot keeps (garbage-)decoding until the row is
         # installed; pin its host vectors to something inert.
         self._cur[row] = self.scfg.pad_id
         self._pos[row] = 0
-        return task
+
+    def _claim_page(self, row: int, slot: int) -> int | None:
+        """One rung of the reclaim ladders: make ``_pt_host[row, slot]`` a page
+        this row holds alone.  Reuse it in place (refcount 1), or allocate
+        one; a shared page is copied on write (the flush rewrites the whole
+        block, so the copy is only a new page and a dropped reference).
+        Returns the page newly assigned, -1 for reuse in place, None when
+        the pool reads as full."""
+        existing = int(self._pt_host[row, slot])
+        if existing >= 0 and self.pool.refcount(existing) == 1:
+            return -1  # ring wrap: overwrite our exclusive page
+        if self._fault("pool_alloc") or not self.pool.free_pages:
+            return None  # (an injected fault reads as a full pool)
+        page = self.pool.alloc(1)[0]
+        if existing >= 0:  # shared: only in prefix mode
+            self.pool.release([existing])
+            if self.prefix_mode:
+                self._pfx["cow_breaks"].inc()
+        self._pt_host[row, slot] = page
+        return page
+
+    def _reclaim(self, row: int) -> int | None:
+        """The rest of the ladder once the pool reads as full: evict one cold
+        index block (None: retry the claim), else the preemption victim, the
+        youngest row that holds pages (-1 when the sweep finds none)."""
+        if self._share and not self._fault("prefix_evict"):
+            if self.index.evict(self.pool, 1):
+                return None
+        if self._fault("reclaim_sweep"):
+            return -1
+        return next((r for r in reversed(self._live_rows_by_age())
+                     if (self._pt_host[r] >= 0).any()), -1)
 
     def _ensure_chunk_page(self, task: _PrefillTask, pos: int) -> bool:
         """Paged: the full chunk at ``pos`` flushes one block, so its ring slot
-        needs a physical page before the chunk runs (the flush of an
-        unassigned slot would be dropped).  Reuse the slot's own page on ring
-        wrap, allocate, or preempt the youngest page holder.  Returns False
+        needs a page this row holds alone before the chunk runs (the flush of
+        an unassigned slot would be dropped).  Reuse, allocate, evict a cold
+        index block, then preempt the youngest page holder.  Returns False
         when that preempted this task itself."""
         T, nb = self._spec0.block_size, self._spec0.n_blocks
         row = task.row
         slot = (pos // T) % nb
         while True:
-            if self._pt_host[row, slot] >= 0:
-                return True  # ring wrap: overwrite our own page
-            if self.pool.free_pages:
-                self._pt_host[row, slot] = self.pool.alloc(1)[0]
+            if self._claim_page(row, slot) is not None:
                 return True
-            victim = self._youngest_page_holder()
+            victim = self._reclaim(row)
+            if victim is None:
+                continue
+            if victim < 0:
+                # Pool exhausted with nothing to reclaim: requeue (within
+                # the budget) or fail only this task's request.
+                self._preempt(row, why="pool exhausted with no reclaimable pages")
+                return False
             self._preempt(victim)
             if victim == row:
                 return False
 
+    def _run_chunk(self, task: _PrefillTask, pos: int, C: int, pages):
+        """One chunk of ``C`` forced tokens at ``pos``; returns its logits.
+        Paged: through a batch-1 view of the live arena over ``pages``, the
+        finishing chunk installing the row."""
+        toks = torch.as_tensor(task.forced[None, pos:pos + C], dtype=torch.int64,
+                               device=self.device)
+        if task.state is not None:
+            logits, _ = M.prefill_chunk(self.params, self.cfg, toks, pos, task.state)
+            return logits
+        view = M.chunk_state_view(self.state, pages, pos)
+        logits, _ = M.prefill_chunk(self.params, self.cfg, toks, pos, view)
+        if pos + C == task.n:
+            M.install_chunk_row(self.state, view, task.row, pages)
+        else:
+            M.adopt_chunk_stores(self.state, view)
+        return logits
+
+    def _count_chunks(self, task: _PrefillTask, pos: int, k: int, C: int) -> None:
+        task.chunks += k
+        self._pf["chunks"].inc(k)
+        if self.prefix_mode:
+            self._pfx["prefill_tokens"].inc(k * C)
+            self._pfx["prefill_attn_pairs"].inc(sum(
+                C * (pos + i * C) + C * (C + 1) // 2 for i in range(k)))
+
     def _advance_task(self, task: _PrefillTask, budget: int) -> int:
         """Run whole chunks of one PREFILLING task until the budget is spent,
-        the task finishes, or a page reclaim preempts it.  Returns prompt
-        tokens processed."""
-        T, n = self._chunk_t, len(task.prompt)
-        row = task.row
+        the task finishes, or a page reclaim preempts it.  Where the budget
+        covers several full chunks, a group of a power of two of them has
+        its pages reserved first and then runs (the reference's multi-chunk
+        dispatch, kept for its order of reclaims; the finishing chunk never
+        joins a group when paged).  Returns prompt tokens processed."""
+        T = self._chunk_t
+        handle, row = task.handle, task.row
+        if self._fault("chunk_prefill"):
+            # Injected chunk-dispatch failure before any device work: requeue
+            # (within the budget) or fail only this request.
+            self._preempt(row, why="injected chunk-prefill failure")
+            return 0
         spent = 0
         t0 = time.monotonic()
         while row in self._prefill_tasks:
             pos = task.pos
-            C = min(T, n - pos)
+            C = min(T, task.n - pos)
             if spent + C > budget:
                 break
-            toks = torch.as_tensor(task.prompt[None, pos:pos + C], device=self.device)
-            if task.state is not None:
-                logits, _ = M.prefill_chunk(self.params, self.cfg, toks, pos, task.state)
-            else:
-                if C == T and not self._ensure_chunk_page(task, pos):
+            fused = task.state is None
+            k = min((budget - spent) // T, (task.n - pos) // T, 8)
+            if fused:
+                k = min(k, (task.n - pos - 1) // T, self._spec0.n_blocks)
+            kb = 1
+            while kb * 2 <= k:
+                kb *= 2
+            if kb >= 2:
+                if fused and not all(self._ensure_chunk_page(task, pos + i * T)
+                                     for i in range(kb)):
                     break  # the reclaim preempted this very task
-                pages = torch.as_tensor(self._pt_host[row], dtype=torch.int32,
-                                        device=self.device)
-                view = M.chunk_state_view(self.state, pages, pos)
-                logits, _ = M.prefill_chunk(self.params, self.cfg, toks, pos, view)
-                if pos + C == n:
-                    M.install_chunk_row(self.state, view, row, pages)
-                else:
-                    M.adopt_chunk_stores(self.state, view)
+                pages = self._device_pages(row) if fused else None
+                for i in range(kb):
+                    logits = self._run_chunk(task, pos + i * T, T, pages)
+                task.pos = pos + kb * T
+                spent += kb * T
+                self._count_chunks(task, pos, kb, T)
+                if task.pos == task.n:
+                    self._finish_task(task, int(torch.argmax(logits[0])))
+                    break
+                continue
+            if fused and C == T and not self._ensure_chunk_page(task, pos):
+                break  # the reclaim preempted this very task
+            logits = self._run_chunk(task, pos, C, self._device_pages(row) if fused else None)
             task.pos = pos + C
-            task.chunks += 1
             spent += C
-            self._pf["chunks"].inc()
-            if task.pos == n:
+            self._count_chunks(task, pos, 1, C)
+            if task.pos == task.n:
                 self._finish_task(task, int(torch.argmax(logits[0])))
-        task.handle._prefill_s += time.monotonic() - t0
+                break
+        handle._prefill_s += time.monotonic() - t0
         self._pf["prefill_tokens"].inc(spent)
+        self._progress += spent
         return spent
+
+    def _device_pages(self, row: int) -> torch.Tensor:
+        return torch.as_tensor(self._pt_host[row], dtype=torch.int32, device=self.device)
 
     def _finish_task(self, task: _PrefillTask, first: int) -> None:
         """The last chunk ran: make the row a decode slot (dense: splice the
-        private state in; paged: the finishing chunk already installed it),
-        or retire at once on a budget of 1 / instant EOS."""
+        private state in; paged: the finishing chunk already installed it
+        and, with sharing on, its full prompt blocks enter the index), or
+        retire at once on a budget of 1 / instant EOS."""
         handle, row = task.handle, task.row
         del self._prefill_tasks[row]
         if handle._t_start is None:
             handle._t_start = time.monotonic()
         if handle._push(first):
+            # Finished at admission: the slot stays free and nothing is
+            # indexed (nothing else rides on this prompt).
             if self.paged:
                 self._release_row(row)
             return
-        if not self.paged:
+        if self.paged:
+            n_full = task.n // self._chunk_t
+            if (self._share and n_full and n_full <= self._spec0.n_blocks
+                    and not self._fault("prefix_insert")):
+                self.index.insert(task.forced, self._pt_host[row][:n_full].tolist(),
+                                  self.pool)
+        else:
             M.insert_decode_row(self.state, task.state, row)
         self._slots[row] = handle
         self._cur[row] = first
-        self._pos[row] = len(task.prompt)
+        self._pos[row] = task.n
 
     def _run_prefill_budget(self, budget: int, decoding: bool) -> int:
         """Spend the step's prompt-token budget on carried-over PREFILLING
@@ -526,60 +864,89 @@ class Server:
         rows += list(self._prefill_tasks)
         return sorted(rows, key=lambda r: self._row_seq[r])
 
-    def _youngest_page_holder(self) -> int:
-        """The preemption victim: the youngest row that holds pages (a row
-        with none would lose progress without freeing a byte).  A full pool
-        always has one, since only rows hold pages."""
-        for r in reversed(self._live_rows_by_age()):
-            if (self._pt_host[r] >= 0).any():
-                return r
-        raise RuntimeError("the pool is full but no row holds a page")
-
-    def _release_row(self, row: int) -> None:
-        """Free the row's pages and clear its device row (page-table row and
-        lengths) together with the host mirrors of its position, so the
-        slot's continuing idle decode can never write into pages re-issued
-        to another request."""
+    def _release_host_pages(self, row: int) -> None:
+        """Drop the row's references on its pages (a page shared with the
+        index or another row survives) and clear its host table row."""
         held = self._pt_host[row][self._pt_host[row] >= 0]
         if len(held):
             self.pool.release(held.tolist())
         self._pt_host[row] = -1
+
+    def _release_row(self, row: int) -> None:
+        """Release the row's pages and clear its device row (page-table row
+        and lengths) with the host mirrors of its position, so the slot's
+        continuing idle decode can never write into pages re-issued to
+        another request."""
+        self._release_host_pages(row)
         M.clear_cache_row(self.state, row)
         self._cur[row] = self.scfg.pad_id
         self._pos[row] = 0
 
-    def _preempt(self, row: int) -> None:
+    def _park(self, row: int, tokens, flushed: int) -> None:
+        """Sharing on: put the row's first ``flushed`` blocks into the index
+        before its references drop, so re-admission resumes from them."""
+        if (self._share and 0 < flushed <= self._spec0.n_blocks
+                and not self._fault("prefix_insert")):
+            self.index.insert(tokens, self._pt_host[row][:flushed].tolist(), self.pool)
+
+    def _preempt(self, row: int, why: str | None = None) -> None:
         """Evict a live or prefilling request and requeue it at the head.
 
-        Its pages are freed and its generated tokens cleared; re-admission
-        replays the prompt through the same chunk loop, and greedy decode at
-        the same batch shape regenerates the identical tokens, so results
-        (and a ``Handle.tokens()`` stream in flight) change only in latency.
-        A half-prefilled row's device page-table row was never installed,
-        so only its host pages release."""
+        Its generated tokens are cleared and its pages released; with
+        sharing on, its prompt-complete blocks are parked in the index first,
+        so re-admission splices them back and chunks only the rest of the
+        prompt.  Blocks that hold decode-computed positions are never
+        parked: chunk-path bits are not decode bits, and a resume that
+        recomputed such a block through the chunk path could flip a near-tie
+        argmax.  Greedy decode at the same batch shape regenerates the same
+        tokens, so results change only in latency.
+
+        Every preemption spends one unit of the request's ``max_requeues``
+        budget.  Over budget the request fails alone (finish_reason
+        "error"), unless it is the oldest request in the server: submit
+        guarantees that one fits solo, so the workload drains.  ``why``
+        names the pressure in the failure message."""
+        in_task = row in self._prefill_tasks
+        handle = self._prefill_tasks[row].handle if in_task else self._slots[row]
+        handle._requeues += 1
+        if (handle._requeues > self.scfg.max_requeues
+                and handle.id != self._oldest_live_id()):
+            self._evict(handle)
+            self._finalize(handle, "error", error=(
+                f"{why or 'preemption storm'}: request {handle.id} preempted "
+                f"{handle._requeues} times with max_requeues={self.scfg.max_requeues}"))
+            return
+        self._lc["requeues"].inc()
+        T = self._chunk_t
         task = self._prefill_tasks.pop(row, None)
         if task is not None:
-            handle = task.handle
-            held = self._pt_host[row][self._pt_host[row] >= 0]
-            if len(held):
-                self.pool.release(held.tolist())
-            self._pt_host[row] = -1
+            if self.paged:
+                # Every full chunk so far flushed its block into this row's
+                # pages (a half-prefilled row's device row was never
+                # installed, so only the host side releases).
+                self._park(row, task.forced,
+                           min(task.pos // T, len(handle.request.prompt) // T))
+                self._release_host_pages(row)
             self._pf["prefill_preemptions"].inc()
         else:
-            handle = self._slots[row]
             self._slots[row] = None
+            # The cache holds _pos tokens; slot i still holds block i only
+            # while the ring has not wrapped (the park checks flushed <= nb).
+            self._park(row, np.asarray(handle.request.prompt, np.int32),
+                       min(int(self._pos[row]) // T, len(handle.request.prompt) // T))
             self._release_row(row)
         handle._toks.clear()
         self._queue.appendleft(handle)
         self._preemptions.inc()
 
     def _ensure_pages(self) -> None:
-        """Assign a physical page to every decoding row whose buffer flushes
-        on the NEXT decode step (the flush of an unassigned slot is dropped).
-        Ring wraparound (sliding-window specs) reuses the slot's page in
-        place.  On exhaustion the youngest page holder is preempted until the
-        flush fits; submit() guarantees that any request fits solo, so the
-        sweep ends with the oldest row progressing."""
+        """Give every decoding row whose buffer flushes on the NEXT decode
+        step a page it holds alone (the flush of an unassigned slot is
+        dropped).  Ring wraparound reuses the slot's page in place, or copies
+        it on write when the index or another row shares it.  On exhaustion:
+        evict a cold index block, then preempt the youngest page holder;
+        submit() guarantees that any request fits solo, so the sweep ends
+        with the oldest row progressing."""
         T, nb = self._spec0.block_size, self._spec0.n_blocks
         grants = []
         for row in self._live_rows_by_age():
@@ -589,15 +956,23 @@ class Server:
             if (pos + 1) % T:
                 continue  # this step only appends to the raw buffer
             slot = ((pos + 1) // T - 1) % nb
-            while self._slots[row] is not None:
-                if self._pt_host[row, slot] >= 0:
-                    break  # ring wrap: overwrite our own page
-                if self.pool.free_pages:
-                    page = self.pool.alloc(1)[0]
-                    self._pt_host[row, slot] = page
-                    grants.append((row, slot, page))
+            while True:
+                page = self._claim_page(row, slot)
+                if page is not None:
+                    if page >= 0:
+                        grants.append((row, slot, page))
                     break
-                self._preempt(self._youngest_page_holder())
+                victim = self._reclaim(row)
+                if victim is None:
+                    continue
+                if victim < 0:
+                    # Nothing to reclaim: requeue (within the budget) or
+                    # fail only this row's request.
+                    self._preempt(row, why="pool exhausted with no reclaimable pages")
+                    break
+                self._preempt(victim)
+                if victim == row:
+                    break
         # A row granted a page early in the sweep can be preempted later in
         # it (a younger zero-page row's victim scan picks the youngest page
         # HOLDER).  Its page went back to the free list and may already be
@@ -610,25 +985,66 @@ class Server:
 
     # -- the step ---------------------------------------------------------------
     def step(self) -> bool:
-        """Admission + chunked prefill, then one batched decode over the live
-        slots.  Returns True while work remains (active, prefilling, queued)."""
+        """One scheduler step: the deadline sweep, admission and chunked
+        prefill, one batched decode.  Returns True while work remains
+        (active, prefilling, queued).
+
+        Then the periodic audit, and the no-progress detector: a server that
+        made no progress for ``stall_steps`` steps with work left raises a
+        ``ServeError`` naming the stuck request, unless a deadline pends
+        (wall-clock time will retire that request)."""
+        self._sweep_deadlines()
+        p0 = self._progress
+        more = self._step_inner()
+        self._steps += 1
+        if self.auditor is not None and self._steps % self.scfg.audit_every == 0:
+            self.auditor.check()
+        if not more or self._progress != p0:
+            self._stall = 0
+            return more
+        if any(self._deadline_of(h) is not None for h in self._all_handles()):
+            self._stall = 0
+            return more
+        self._stall += 1
+        if self._stall >= self.scfg.stall_steps:
+            stuck = min(self._all_handles(), key=lambda h: h.id)
+            where = ("queued" if stuck in self._queue else
+                     "prefilling" if any(t.handle is stuck
+                                         for t in self._prefill_tasks.values())
+                     else "decoding")
+            pool = (f", free_pages={self.pool.free_pages}/{self.pool.n_pages}"
+                    if self.paged else "")
+            raise ServeError(
+                f"no progress for {self._stall} consecutive steps; request "
+                f"{stuck.id} ({where}, submitted "
+                f"{time.monotonic() - stuck._t_submit:.1f}s ago) appears stuck "
+                f"(active={self.active}, prefilling={self.prefilling}, "
+                f"pending={self.pending}{pool})")
+        return more
+
+    def _step_inner(self) -> bool:
         free = [i for i, s in enumerate(self._slots)
                 if s is None and i not in self._prefill_tasks]
         decoding = any(s is not None for s in self._slots)
+        # Carried-over tasks spend the budget first; a task finishing here
+        # joins this step's decode and indexes its blocks before the sweep's
+        # next lookup, so co-arriving shared prompts reuse each other.
         budget = self._chunk_budget if self.prefill_chunked else 0
         if self._prefill_tasks:
             budget = self._run_prefill_budget(budget, decoding)
         while free and self._queue:
             handle = self._pop_next()
+            row = free[0]
             if not self._can_admit(handle):
                 self._queue.appendleft(handle)  # pool pressure: park it
                 break
-            row = free.pop(0)
-            task = self._start_prefill(handle, row)
+            self._start_prefill(handle, row)
+            free.remove(row)
+            task = self._prefill_tasks[row]
             if not self.prefill_chunked:
                 if decoding:
                     self._pf["stalled_decode_steps"].inc()
-                self._advance_task(task, len(task.prompt))
+                self._advance_task(task, task.n)
             elif budget >= 1:
                 spent = self._advance_task(task, budget)
                 budget -= spent
@@ -637,17 +1053,22 @@ class Server:
             if self._queue and self._queue[0] is handle:
                 break  # the chunk loop preempted itself: the pool is too tight
             if row not in self._prefill_tasks and self._slots[row] is None:
-                free.insert(0, row)  # finished (and retired) at admission
+                free.append(row)  # finished (and retired) at admission
         if self.paged:
             self._ensure_pages()
         rows = [i for i, s in enumerate(self._slots) if s is not None]
         if not rows:
             return bool(self._queue) or bool(self._prefill_tasks)
+        if self._fault("decode_dispatch"):
+            # Injected transient failure before the launch: the state is
+            # untouched and the next step retries with the same inputs.
+            return True
         logits, _ = M.decode_step(
             self.params, self.cfg, torch.as_tensor(self._cur, device=self.device),
             torch.as_tensor(self._pos, device=self.device), self.state)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self._decode_steps.inc()
+        self._progress += len(rows)
         for row in rows:
             tok = int(nxt[row])
             self._cur[row] = tok
@@ -676,8 +1097,8 @@ class Server:
 
     def stats(self) -> dict:
         """Serving stats: a view over ``self.metrics``, with the reference's
-        keys (``pool`` in paged mode; ``shards`` with one entry, as an
-        unsharded reference server reports)."""
+        keys (``pool`` in paged mode, ``prefix`` in prefix mode; ``shards``
+        with one entry, as an unsharded reference server reports)."""
         s = {
             "cache_mode": "paged" if self.paged else "dense",
             "active": self.active,
@@ -688,8 +1109,7 @@ class Server:
                 "mode": "chunked" if self.prefill_chunked else "solo",
                 "chunk_tokens": self._chunk_budget,
                 "prefilling": len(self._prefill_tasks),
-                "inflight_tokens": sum(len(t.prompt) - t.pos
-                                       for t in self._prefill_tasks.values()),
+                "inflight_tokens": sum(t.n - t.pos for t in self._prefill_tasks.values()),
                 **{k: c.value for k, c in self._pf.items()},
             },
             "latency": {
@@ -697,7 +1117,8 @@ class Server:
                 "itl_s": self._h_itl.snapshot(),
                 "queue_wait_s": self._h_queue.snapshot(),
             },
-            "lifecycle": {"submitted": self._next_req_id},
+            "lifecycle": {"submitted": self._next_req_id,
+                          **{k: c.value for k, c in self._lc.items()}},
         }
         shard = {"preemptions": self._preemptions.value}
         if self.paged:
@@ -706,4 +1127,11 @@ class Server:
             shard.update(pages_live=ps["pages_live"], pages_free=ps["pages_free"],
                          high_water_pages=ps["high_water_pages"])
         s["shards"] = {"n_data": 1, "n_model": 1, "per_shard": [shard]}
+        if self.prefix_mode:
+            p = {k: c.value for k, c in self._pfx.items()}
+            p["mode"] = self.scfg.prefix_cache
+            p["hit_rate"] = (p["hits"] / p["lookups"]) if p["lookups"] else 0.0
+            if self._share:
+                p["index"] = PrefixIndex.merge_stats([self.index])
+            s["prefix"] = p
         return s

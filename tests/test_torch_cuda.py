@@ -246,6 +246,39 @@ def test_paged_server_equals_dense_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_prefix_server_equals_noshare_on_card(cuda):
+    """Two identical prompts served with the prefix cache on, the second
+    after the first decodes: it splices the first's pages (read by both
+    rows' Fetch through their page tables), and the tokens equal noshare's
+    and each other's; every launch went through the paged kernels."""
+    from repro_torch.models import model as TM
+    from repro_torch.models import registry as TR
+    from repro_torch.serve import scheduler as TS
+
+    cfg = TR.get_smoke_config("yi_6b")
+    params = TM.init_params(cfg, seed=0, device="cuda")
+    prompt = np.random.default_rng(13).integers(0, cfg.vocab_size, 37).astype(np.int32)
+    out = {}
+    for mode in ("on", "noshare"):
+        srv = TS.Server(cfg, params, TS.ServerConfig(max_slots=2, max_seq=256,
+                                                     cache_mode="paged", prefix_cache=mode,
+                                                     attn_backend="fused"))
+        runtime.reset_launches()
+        first = srv.submit(TS.Request(prompt=prompt, max_new_tokens=12))
+        while srv.active < 1:
+            srv.step()
+        second = srv.submit(TS.Request(prompt=prompt, max_new_tokens=12))
+        srv.run()
+        out[mode] = ([first.result().tokens.tolist(), second.result().tokens.tolist()],
+                     dict(runtime.launches), srv.stats()["prefix"])
+    (a, b), launches, px = out["on"]
+    assert a == b and [a, b] == out["noshare"][0]
+    assert px["hits"] == 1 and px["hit_blocks"] == (len(prompt) - 1) // cfg.cache_block
+    assert launches["fused_kv_attn_paged"] > 0 and launches["fused_kv_attn"] == 0
+    assert launches["pack_encode"] > 0
+
+
+@pytest.mark.cuda
 def test_huffman_fetch_bit_identical_to_packed_on_card(cuda):
     """The same blocks stored packed and huffman (the same codes and
     scales): the Fetch kernel's outputs are bit-identical, dense and paged,

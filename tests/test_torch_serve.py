@@ -4,7 +4,8 @@ tests/test_models.py::test_compressed_cache_decode_tracks_raw), and its own
 exactness contracts on the CPU: batched == solo and chunked == solo
 admission, bit-exact.  Also: entry points need CUDA unless told otherwise,
 and options of later slices raise.  The paged mode is held in
-tests/test_torch_pool.py."""
+tests/test_torch_pool.py, the prefix cache in tests/test_torch_prefix.py and
+the request lifecycle in tests/test_torch_faults.py."""
 
 import dataclasses
 
@@ -154,12 +155,21 @@ def test_entry_points_need_cuda_unless_told(setup, monkeypatch):
     ("trace", "events"), ("faults", object()), ("audit_every", 2),
     ("max_pending", 4), ("default_deadline_s", 1.0)])
 def test_later_slice_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TS.ServerConfig(**{field: value})
+    """Options of later slices (sharding, event tracing) raise; the prefix
+    cache and the lifecycle options, once refused here, are served now."""
+    if field in TS._LATER:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            TS.ServerConfig(**{field: value})
+    else:
+        assert getattr(TS.ServerConfig(**{field: value}), field) is value
+    assert set(TS._LATER) == {"mesh", "trace"}
 
 
 def test_request_deadline_raises(setup):
+    """A deadline is served now; a non-positive one raises at submit."""
     _, tcfg, _, tp, prompts = setup
     srv = TS.Server(tcfg, tp, TS.ServerConfig(max_slots=1, max_seq=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        srv.submit(TS.Request(prompt=prompts[0], deadline_s=1.0))
+    with pytest.raises(ValueError, match="deadline_s"):
+        srv.submit(TS.Request(prompt=prompts[0], deadline_s=0.0))
+    h = srv.submit(TS.Request(prompt=prompts[0], max_new_tokens=2, deadline_s=600.0))
+    assert h.result().finish_reason == "length"
