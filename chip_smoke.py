@@ -5,7 +5,7 @@
     python3 chip_smoke.py --split-sweep   # phases 1, 2, then the Fetch at S = 1, 2, 4
     python3 chip_smoke.py --walk-parent DIR   # phases 1, 2, then DIR's walk kernels vs these
 
-Phases, in the order they run (11 after 4, 12 after 9, 13 and 14 after
+Phases, in the order they run (11 after 4, 12 after 9, 13 to 15 after
 12, times last); any failure exits non-zero before the result lines:
 
 1. Device: needs CUDA; prints the card's name and power limit.
@@ -93,6 +93,28 @@ Phases, in the order they run (11 after 4, 12 after 9, 13 and 14 after
    (d)'s, the plan fired; (b) 10 requests for 8 slots at (a)'s pool, one
    live and one queued request cancelled mid-run: the others' tokens
    unchanged, the auditor clean, the pool drained to the index's pages.
+15. Observability and the facade, on the same weights: (a) ``api.serve``
+   with ``trace="full"`` on phase 13(a)'s requests and pool: tokens equal
+   13(a)'s, ``request_timings`` equal every Result's ``ttft_s`` and
+   ``token_times`` exactly, every scheduler event kind of the run present
+   and none dropped; ``shutdown`` writes the JSON snapshot, its ``.prom``
+   text and the Chrome trace (one track a request and the scheduler's),
+   read back; (b) ``obs.trace_capture`` around 4 pure packed decode steps
+   and around one huffman prefill chunk: device ms and kernels under each
+   ``kvcomp/*`` scope and the host ms outside any kernel, read from the
+   exported trace; every Fetch kernel must run inside
+   ``kvcomp/fused_attention``, every Store kernel inside
+   ``kvcomp/pack_encode``, every slot decode inside
+   ``kvcomp/huffman_lut_decode``, and ``annotate`` must not enter the
+   profiler outside a capture; (c) phase 5's workload with the trace off
+   and full in turns, twice each: equal tokens and launch counts, no event
+   when off, the four walls printed; (d) ``api.compress`` / ``attend`` /
+   ``decompress`` and ``estimate_ratio`` on layer 0's K and V of a
+   1000-token prompt for raw, packed, kivi and huffman: ``attend`` launches
+   the Fetch once and agrees with the plain backend within FETCH_ATOL; (e)
+   the CLI (``python -m repro_torch.launch.serve``, paged, prefix on, trace
+   full, audit every 4 steps) as a subprocess: exit 0, its three files
+   written.
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
@@ -108,7 +130,9 @@ Phases, in the order they run (11 after 4, 12 after 9, 13 and 14 after
    method's launch floor), a chunk's (B=1) and 8 rows into arena pages; the
    slot LUT decode at the chunk path's shape (one span of one row, K and V in
    one launch) and at phase 11's 256 K slots; the walk kernels at phase 11's
-   shapes, with the default K book (the JSON rows) and the skewed book.
+   shapes, with the default K book (the JSON rows) and the skewed book.  The
+   raw dense Fetch is timed beside ``scaled_dot_product_attention`` on the
+   same bf16 tokens (the Fetch row's library time).
 
 The last three lines are the card (nvidia-smi), a JSON line with one entry
 per kernel, and ``{"ok": true, "device": {...}}``.  ``--split-sweep`` builds
@@ -738,7 +762,7 @@ def phase_serve(report: dict, cfg, params) -> None:
     st = server.stats()
     print(f"  served {n_tok} tokens in {wall:.2f} s: {n_tok / wall:.1f} tok/s, "
           f"mean ttft {np.mean([r.ttft_s for r in results]):.3f} s, "
-          f"{st['decode_steps']} decode steps, {st['prefill']['chunks']} prefill chunks")
+          f"{server.decode_steps} decode steps, {st['prefill']['chunks']} prefill chunks")
     kv = server.memory_report()["kv_bytes"]
     raw = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim * 2
     print(f"  KV cache of the live state: {kv / 2**20:.1f} MiB for {B} x 4096 token "
@@ -753,7 +777,7 @@ def phase_serve(report: dict, cfg, params) -> None:
     if others:
         raise AssertionError(f"the dense packed path launched {others}")
     report.update(launches=launches, tok_s=n_tok / wall, wall_s=wall,
-                  ttft_s=[r.ttft_s for r in results], decode_steps=st["decode_steps"],
+                  ttft_s=[r.ttft_s for r in results], decode_steps=server.decode_steps,
                   chunks=st["prefill"]["chunks"], tokens=[r.tokens for r in results])
 
     # Launches per decode step, measured on one more step of the same state.
@@ -952,19 +976,19 @@ def _chunk_profile(cfg, params, server, prompt) -> float:
 
 
 def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = False,
-               stagger: bool = False, after=None) -> dict:
-    """Serve ``prompts`` through one server, stepping by hand: the launch
-    counts of every pure decode step (the kernels that launched, and how
-    often), the peak number of live rows, and (``profile``) one decode step
-    with every row live and, after the run, one prefill chunk.  ``stagger``
-    submits the first prompt alone and the others once it decodes;
-    ``after(server)`` runs on the drained server and its dict joins the
-    result."""
+               stagger: bool = False, after=None, server=None) -> dict:
+    """Serve ``prompts`` through one server (``server``, else a new one of
+    ``scfg``), stepping by hand: the launch counts of every pure decode step
+    (the kernels that launched, and how often), the peak number of live
+    rows, and (``profile``) one decode step with every row live and, after
+    the run, one prefill chunk.  ``stagger`` submits the first prompt alone
+    and the others once it decodes; ``after(server)`` runs on the drained
+    server and its dict joins the result."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.serve.scheduler import Request, Server
 
-    server = Server(cfg, params, scfg)
+    server = server if server is not None else Server(cfg, params, scfg)
     late = list(prompts[1:]) if stagger else []
     handles = [server.submit(Request(prompt=p, max_new_tokens=new_tokens))
                for p in prompts[:len(prompts) - len(late)]]
@@ -977,7 +1001,7 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
             handles += [server.submit(Request(prompt=p, max_new_tokens=new_tokens))
                         for p in late]
             late = []
-        st0, l0 = server.stats(), dict(runtime.launches)
+        st0, d0, l0 = server.stats(), server.decode_steps, dict(runtime.launches)
         if (profile and "profile" not in out and server.active == rows
                 and not server.prefilling and not server.pending):
             if server.paged:
@@ -997,7 +1021,7 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
         more = server.step()
         wall += time.monotonic() - t0
         st1 = server.stats()
-        if (st1["decode_steps"] == st0["decode_steps"] + 1
+        if (server.decode_steps == d0 + 1
                 and st1["prefill"]["chunks"] == st0["prefill"]["chunks"]):
             per_step.add(tuple(sorted((k, v - l0[k]) for k, v in runtime.launches.items()
                                       if v - l0[k])))
@@ -1009,14 +1033,14 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
     results = [h.result() for h in handles]
     out.update(tokens=[r.tokens for r in results], launches=dict(runtime.launches),
                per_step=per_step, peak=peak, wall=wall, stats=st,
-               ttft=[r.ttft_s for r in results],
+               ttft=[r.ttft_s for r in results], token_times=[r.token_times for r in results],
                reasons=[r.finish_reason for r in results], errors=[r.error for r in results],
                kv_bytes=server.memory_report()["kv_bytes"])
     n_tok = sum(len(t) for t in out["tokens"])
     out["tok_s"] = n_tok / wall
     ttfts = [t for t in out["ttft"] if t is not None]
     print(f"  served {n_tok} tokens in {wall:.2f} s of steps: {n_tok / wall:.1f} tok/s, "
-          f"mean ttft {np.mean(ttfts):.3f} s, {st['decode_steps']} decode steps, "
+          f"mean ttft {np.mean(ttfts):.3f} s, {server.decode_steps} decode steps, "
           f"{st['prefill']['chunks']} prefill chunks, peak {peak} rows live, "
           f"{st['preemptions']} preemptions ({st['prefill']['prefill_preemptions']} "
           f"mid-prefill)")
@@ -1338,6 +1362,278 @@ def phase_lifecycle(report: dict, cfg, params) -> None:
     torch.cuda.empty_cache()
 
 
+SCOPED_KERNELS = {  # kernel name fragment -> the kvcomp scope it must run inside
+    "fused_kv_attn": "kvcomp/fused_attention",
+    "pack_encode": "kvcomp/pack_encode",
+    "huffman_lut_decode": "kvcomp/huffman_lut_decode",
+}
+
+
+def trace_scopes(path) -> dict:
+    """Read a torch.profiler Chrome trace: device ms and kernel count under
+    each ``kvcomp/*`` scope (the ``gpu_user_annotation`` ranges the profiler
+    draws on the device track around the kernels launched inside a
+    ``record_function``; a kernel counts under every scope around it), the
+    kernels of ``SCOPED_KERNELS`` outside their scope, and the host ms
+    outside any kernel (the captured span less the union of kernel times)."""
+    doc = json.loads(Path(path).read_text())
+    evs = doc["traceEvents"]
+    kernels = [e for e in evs if e.get("cat") == "kernel"]
+    scopes = [e for e in evs if e.get("cat") == "gpu_user_annotation"
+              and e["name"].startswith("kvcomp/")]
+    per: dict = {}
+    misplaced = []
+    for k in kernels:
+        inside = {a["name"] for a in scopes if a.get("pid") == k.get("pid")
+                  and a.get("tid") == k.get("tid") and a["ts"] <= k["ts"]
+                  and k["ts"] + k["dur"] <= a["ts"] + a["dur"]}
+        for name in inside:
+            acc = per.setdefault(name, [0.0, 0])
+            acc[0] += k["dur"] / 1e3
+            acc[1] += 1
+        for frag, scope in SCOPED_KERNELS.items():
+            if frag in k["name"] and scope not in inside:
+                misplaced.append((k["name"][:60], scope))
+    host = [e for e in evs if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation",
+                                                                       "python_function")]
+    lo = min([e["ts"] for e in host + kernels])
+    hi = max([e["ts"] + e["dur"] for e in host + kernels])
+    busy, end = 0.0, lo
+    for k in sorted(kernels, key=lambda e: e["ts"]):
+        a, b = max(k["ts"], end), k["ts"] + k["dur"]
+        if b > a:
+            busy += b - a
+            end = b
+    return dict(per=per, misplaced=misplaced, n_kernels=len(kernels),
+                kernel_ms=sum(k["dur"] for k in kernels) / 1e3, span_ms=(hi - lo) / 1e3,
+                host_only_ms=(hi - lo - busy) / 1e3,
+                kinds={f for f in SCOPED_KERNELS if any(f in k["name"] for k in kernels)})
+
+
+def _captured(fn, what: str, want: set) -> dict:
+    """Run ``fn`` under ``obs.trace_capture`` into a temporary directory and
+    read its trace; fail unless each kernel of ``want`` ran, inside its
+    scope."""
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+
+    with tempfile.TemporaryDirectory() as d:
+        with obs.trace_capture(d):
+            fn()
+            torch.cuda.synchronize()
+        files = sorted(Path(d).glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"{what}: trace_capture wrote {files}")
+        r = trace_scopes(files[0])
+    print(f"  {what}: {r['n_kernels']} kernels, {r['kernel_ms']:.3f} device ms in a captured "
+          f"span of {r['span_ms']:.3f} ms, {r['host_only_ms']:.3f} ms outside any kernel")
+    for name, (ms, n) in sorted(r["per"].items()):
+        print(f"    {name:28s} {ms:9.3f} device ms in {n:5d} kernels")
+    if r["misplaced"]:
+        raise AssertionError(f"{what}: kernels outside their scope: {r['misplaced'][:5]}")
+    if not want <= r["kinds"]:
+        raise AssertionError(f"{what}: kernels {want - r['kinds']} never ran")
+    return r
+
+
+def phase_observability(report: dict, cfg, params) -> None:
+    """Phase 15: the event trace, its exports, the profiler scopes and the
+    facade (``api``) and CLI on full-width Yi-6B."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.kernels import runtime
+    from repro_torch.models import attention, layers
+    from repro_torch.models import model as M
+    from repro_torch.obs.trace import EVENT_KINDS, EventTrace
+
+    t_phase = time.monotonic()
+    x = report["prefix"]
+    prompts = x["prompts"]
+    print("  (a) api.serve, trace full: phase 13(a)'s requests, paged, prefix on", flush=True)
+    tmp = tempfile.TemporaryDirectory()
+
+    def exports(server) -> dict:
+        d = Path(tmp.name)
+        snap = server.shutdown(metrics_out=d / "metrics.json", trace_out=d / "trace.json")
+        disk = json.loads((d / "metrics.json").read_text())
+        prom = (d / "metrics.prom").read_text()
+        doc = json.loads((d / "trace.json").read_text())
+        tracks = {e["args"]["name"] for e in doc["traceEvents"] if e["name"] == "thread_name"}
+        want_tracks = {"scheduler"} | {f"req {i}" for i in range(len(prompts))}
+        if set(disk) != set(snap) or tracks != want_tracks or "# TYPE kvcomp_" not in prom:
+            raise AssertionError(f"exports: snapshot keys {set(disk)}, tracks {tracks}")
+        print(f"  exports: metrics.json ({len(json.dumps(disk))} B), metrics.prom "
+              f"({prom.count(chr(10))} lines), trace.json ({len(doc['traceEvents'])} events, "
+              f"tracks: scheduler + {len(tracks) - 1} requests)")
+        print(obs.format_snapshot(server.stats()))
+        print(f"  bench columns: {obs.bench_columns(server)}")
+        kinds: dict = {}
+        for e in server.trace.events:
+            kinds[e.kind] = kinds.get(e.kind, 0) + 1
+        return dict(timings=server.trace.request_timings(), kinds=kinds,
+                    dropped=server.trace.dropped)
+
+    server = api.serve(cfg, params, max_slots=PB, max_seq=4096, attn_backend="fused",
+                       cache_mode="paged", prefix_cache="on", pool_hbm_bytes=x["pool_bytes"],
+                       trace="full")
+    r = _serve_run(cfg, params, prompts, None, PREFIX_NEW, stagger=True, after=exports,
+                   server=server)
+    del server
+    tmp.cleanup()
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(x["tokens"], r["tokens"]))
+    print(f"  tokens: {same}/{len(prompts)} requests equal to phase 13(a)'s; events by kind "
+          f"{r['kinds']}, {r['dropped']} dropped")
+    if same != len(prompts):
+        raise AssertionError("api.serve with the trace: tokens differ from phase 13(a)")
+    for i, (tt, ttft) in enumerate(zip(r["token_times"], r["ttft"])):
+        t = r["timings"][i]
+        if t["token_times"] != tt or t["ttft_s"] != ttft:
+            raise AssertionError(f"request {i}: the trace's timings differ from its Result's")
+    need = {"submit", "prefill_start", "prefix_hit", "prefill_chunk", "page_assign",
+            "prefill_finish", "token", "retire", "decode_step"}
+    if not need <= set(r["kinds"]) or r["dropped"] or not set(r["kinds"]) <= set(EVENT_KINDS):
+        raise AssertionError(f"events {r['kinds']}, {r['dropped']} dropped")
+    print("  request_timings == every Result's ttft_s and token_times, exactly")
+
+    print("  (b) obs.trace_capture: 4 pure packed decode steps, one huffman chunk", flush=True)
+    rng = np.random.default_rng(0)
+    dense_prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32) for L in PROMPT_LENS]
+    srv = api.serve(cfg, params, max_slots=B, max_seq=4096, attn_backend="fused")
+    for p in dense_prompts:
+        srv.submit(api.Request(prompt=p, max_new_tokens=NEW_TOKENS))
+    while srv.prefilling or srv.pending or srv.active < B:
+        srv.step()
+    real_rf, entered = torch.profiler.record_function, []
+
+    def counting(name):
+        entered.append(name)
+        return real_rf(name)
+
+    torch.profiler.record_function = counting
+    try:
+        srv.step()
+        torch.cuda.synchronize()
+        outside = len(entered)
+        d0 = srv.decode_steps
+
+        def steps():
+            for _ in range(4):
+                srv.step()
+
+        dec = _captured(steps, "4 packed decode steps (4 rows)", {"fused_kv_attn", "pack_encode"})
+        if srv.decode_steps != d0 + 4 or srv.prefilling or srv.active != B:
+            raise AssertionError("the captured steps were not 4 pure decode steps")
+        inside = len(entered) - outside
+        hcfg = dataclasses.replace(cfg, cache_layout="huffman")
+        st = M.init_decode_state(hcfg, 1, 4096, device="cuda")
+        toks = torch.as_tensor(dense_prompts[-1][None, :576], device="cuda")
+        for pos in range(0, 512, T):
+            M.prefill_chunk(params, hcfg, toks[:, pos:pos + T], pos, st)
+        chunk = _captured(lambda: M.prefill_chunk(params, hcfg, toks[:, 512:576], 512, st),
+                          "one huffman prefill chunk (64 tokens at 512)",
+                          {"huffman_lut_decode", "fused_kv_attn"})
+    finally:
+        torch.profiler.record_function = real_rf
+    print(f"  record_function entries: {outside} in a decode step outside a capture, "
+          f"{inside} in the 4 captured steps")
+    if outside or not inside:
+        raise AssertionError(f"annotate entered the profiler {outside} times outside a "
+                             f"capture and {inside} inside")
+    report["scopes"] = dict(decode=dec, chunk=chunk)
+    srv.run()
+    del srv, st
+    torch.cuda.empty_cache()
+
+    print("  (c) phase 5's dense packed workload, trace off / full in turns", flush=True)
+    walls, runs = [], {}
+    for level in ("off", "full", "off", "full"):
+        srv = api.serve(cfg, params, max_slots=B, max_seq=4096, attn_backend="fused",
+                        trace=level)
+        handles = [srv.submit(api.Request(prompt=p, max_new_tokens=NEW_TOKENS))
+                   for p in dense_prompts]
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        t0 = time.monotonic()
+        srv.run()
+        torch.cuda.synchronize()
+        walls.append((level, time.monotonic() - t0))
+        toks = [h.result().tokens for h in handles]
+        run = runs.setdefault(level, dict(launches=dict(runtime.launches), tokens=toks,
+                                          events=len(srv.trace.events)))
+        if (run["launches"] != runtime.launches
+                or not all(np.array_equal(a, b) for a, b in zip(toks, report["tokens"]))):
+            raise AssertionError(f"trace {level}: tokens or launches differ")
+        del srv
+    if runs["off"]["launches"] != runs["full"]["launches"] or runs["off"]["events"]:
+        raise AssertionError(f"trace off vs full: launches {runs['off']['launches']} vs "
+                             f"{runs['full']['launches']}, {runs['off']['events']} events off")
+    print(f"  tokens equal to phase 5's and launches equal in all four runs "
+          f"({runs['off']['launches']}); off recorded 0 events, full "
+          f"{runs['full']['events']}")
+    print("  walls, s: " + ", ".join(f"{lv} {w:.3f}" for lv, w in walls))
+    # The trace's own host cost: one emit, timed on this host's clock.
+    ring, n_emit = EventTrace("full"), 20000
+    t0 = time.perf_counter()
+    for i in range(n_emit):
+        ring.emit("token", req=0, t=0.0, index=i)
+    per_us = 1e6 * (time.perf_counter() - t0) / n_emit
+    print(f"  one emit: {per_us:.2f} us on the host; the full run's "
+          f"{runs['full']['events']} events: {runs['full']['events'] * per_us / 1e3:.3f} ms")
+    report["trace_walls"] = walls
+
+    print("  (d) api.compress / attend / decompress on layer 0's K and V of a 1000-token "
+          "prompt", flush=True)
+    blk = params["blocks"][0]
+    ids = torch.as_tensor(dense_prompts[-1][None, :1000].astype(np.int64), device="cuda")
+    h = layers.rms_norm(layers.embed_tokens(params["emb"], ids), blk["ln_attn"], cfg.norm_eps)
+    q, k, v = attention.qkv_project(blk["attn"], cfg, h,
+                                    torch.arange(1000, device="cuda")[None])
+    k, v, q = k.transpose(1, 2), v.transpose(1, 2), q[:, -1]  # [1, 4, 1000, 128], [1, 32, 128]
+    for layout in ("raw", "packed", "kivi", "huffman"):
+        pol = api.CompressionPolicy(layout=layout)
+        cache = api.compress(k, v, policy=pol, max_seq=4096)
+        key = "fused_kv_attn" + ("_huffman" if layout == "huffman" else "")
+        n0 = runtime.launches[key]
+        out = api.attend(cache, q)
+        torch.cuda.synchronize()
+        fetched = runtime.launches[key] - n0
+        err = float((out - api.attend(cache, q, backend="xla")).abs().max())
+        kd, vd = api.decompress(cache)
+        rec = max(float((kd.float() - k.float()).abs().max()),
+                  float((vd.float() - v.float()).abs().max()))
+        # [ctx, heads, head_dim] at whole blocks: the first 960 tokens
+        ratio = api.estimate_ratio(k[0, :, :960].transpose(0, 1), v[0, :, :960].transpose(0, 1),
+                                   policy=pol)
+        print(f"    {layout:8s}: Fetch launches {fetched}, |attend - plain| {err:.2e}, "
+              f"decompress max |err| {rec:.3e}, estimate_ratio {ratio['ratio']:.3f} "
+              f"(K {ratio['k'].ratio:.3f}, V {ratio['v'].ratio:.3f})")
+        if fetched != 1 or not err <= FETCH_ATOL or kd.shape != k.shape:
+            raise AssertionError(f"api on {layout}: {fetched} Fetch launches, error {err}")
+
+    print("  (e) the CLI: python -m repro_torch.launch.serve on the card", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        files = [Path(d) / "trace.json", Path(d) / "metrics.json", Path(d) / "metrics.prom"]
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "yi_6b",
+               "--layout", "packed", "--cache-mode", "paged", "--prefix-cache", "on",
+               "--trace", "full", "--trace-out", str(files[0]), "--metrics-out",
+               str(files[1]), "--audit-every", "4"]
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        line = [x for x in out.stdout.splitlines() if x.startswith("layout=")]
+        missing = [f.name for f in files if not f.exists()]
+        print(f"  rc {out.returncode}; {line[0] if line else 'no throughput line'}; files "
+              f"missing: {missing}")
+        if out.returncode or missing or not line:
+            raise AssertionError(f"the CLI failed:\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    print(f"  phase 15: {time.monotonic() - t_phase:.1f} s; card: {card_line()}")
+
+
 def fetch_cases() -> dict:
     """Phase 10's Fetch inputs, packed and huffman: the dense run's last
     decode-step lengths, the paged run's last lengths on a shuffled arena
@@ -1360,11 +1656,35 @@ def fetch_cases() -> dict:
         out[layout, "paged blocks, dense"] = dict(spec=spec, c=c, dense=c, q=q, nb=nb_p, bl=bl_p)
         spec, c, q = make_cache(layout, nb_l, bl_l, seed=23)
         out[layout, "long rows"] = dict(spec=spec, c=c, dense=c, q=q, nb=nb_l, bl=bl_l)
+    spec, c, q = make_cache("raw", nb_d, bl_d, seed=24)
+    out["raw", "dense"] = dict(spec=spec, c=c, dense=c, q=q, nb=nb_d, bl=bl_d)
     for x in out.values():
         args, kw = fetch_args(x["spec"], x["c"])
         x["run"] = lambda q=x["q"], a=args, k=kw: fused_kv_attn.fused_cache_attention(q, *a, **k)
         x["plain"] = lambda q=x["q"], a=args, k=kw: fused_kv_attn.plain(q, *a, **k)
     return out
+
+
+def sdpa_call(x: dict):
+    """The raw Fetch case ``x`` as one library call: every ring slot's
+    tokens then the buffer's, bf16 (q rounded to bf16 too: the call takes
+    one dtype), through ``scaled_dot_product_attention`` with GQA and a
+    boolean mask of each row's live tokens (blocks below its nb_valid,
+    buffer entries below its buf_len).  Returns the call; the operands are
+    built once, outside it."""
+    import torch
+    import torch.nn.functional as F
+
+    c, b = x["c"], len(x["nb"])
+    keys = torch.cat([c.k_store.reshape(b, HKV, NB * T, D), c.k_buf], dim=2)
+    vals = torch.cat([c.v_store.reshape(b, HKV, NB * T, D), c.v_buf], dim=2)
+    pos = torch.arange(NB * T + T, device="cuda")[None]
+    nb = torch.as_tensor(x["nb"], device="cuda")[:, None]
+    bl = torch.as_tensor(x["bl"], device="cuda")[:, None]
+    mask = ((pos < nb * T) | ((pos >= NB * T) & (pos < NB * T + bl)))[:, None, None]
+    qb = x["q"].to(torch.bfloat16)[:, :, None]
+    return lambda: F.scaled_dot_product_attention(qb, keys, vals, attn_mask=mask,
+                                                  enable_gqa=True)
 
 
 def fetch_times(report: dict, cases: dict) -> list[dict]:
@@ -1374,7 +1694,8 @@ def fetch_times(report: dict, cases: dict) -> list[dict]:
     from repro_torch.kernels import fused_kv_attn
 
     split = fused_kv_attn.split_blocks()
-    steps = {"packed": report["per_step"]["fused_kv_attn"], "huffman": report["huffman"]["per_step"]}
+    steps = {"packed": report["per_step"]["fused_kv_attn"], "huffman": report["huffman"]["per_step"],
+             "raw": 0}
     rows = {}
     for (layout, mode), x in cases.items():
         ms = timed(x["run"])
@@ -1386,14 +1707,24 @@ def fetch_times(report: dict, cases: dict) -> list[dict]:
         bd = fetch_bound_ms(x["spec"], x["nb"], x["bl"], paged=paged, cache=x["dense"])
         ws = 4 * fused_kv_attn.workspace_elems(len(x["nb"]), HKV, G, D, NB, split)
         plain_s = "" if plain_ms is None else f"plain {plain_ms:.4f} ms, "
+        lib_ms = None
+        if layout == "raw":
+            lib = sdpa_call(x)
+            diff = float((lib()[:, :, 0].float() - x["run"]()).abs().max())
+            lib_ms = timed(lib)
+            plain_s += (f"scaled_dot_product_attention {lib_ms:.4f} ms (bf16 q; max |diff| "
+                        f"{diff:.2e}), ")
         print(f"  fetch ({layout}, {mode}, B={len(x['nb'])}, nb_valid {x['nb']}, buf_len "
               f"{x['bl']}): kernel {ms:.4f} ms, {plain_s}bound {bd['bound_ms']:.6f} ms "
               f"({bd['bound_by']}; bytes alone {bd['bytes_ms']:.6f} ms; float32 yardstick "
               f"{bd['f32_ms']:.6f} ms, {bd['f32_by']}), {ms / bd['bound_ms']:.0f}x the bound; "
               f"split workspace {ws} B; {steps[layout]} launches/decode step")
-        rows[layout, mode] = dict(ms=ms, plain_ms=plain_ms, **bd)
+        rows[layout, mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
     report["fetch_rows"] = rows
     entries = []
+    # The raw tiles' library call is the Fetch row's library time; no single
+    # call decodes the packed, kivi or huffman tiles.
+    library = {"fused_kv_attn": rows["raw", "dense"]["library_ms"]}
     for name, replaces, (layout, mode), launches, err in (
             ("fused_kv_attn", "src/repro/kernels/fused_kv_attn.py:57", ("packed", "dense"),
              report["launches"]["fused_kv_attn"], report["fetch_err"]),
@@ -1413,7 +1744,7 @@ def fetch_times(report: dict, cases: dict) -> list[dict]:
                         "source": "src/repro_torch/csrc/fused_kv_attn.cu", "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"], "library_ms": library.get(name)})
     return entries
 
 
@@ -1750,6 +2081,8 @@ def main() -> int:
     phase_prefix_serve(report, cfg, params)
     print("[14] request lifecycle: chaos soak and cancel", flush=True)
     phase_lifecycle(report, cfg, params)
+    print("[15] observability and the facade at full width", flush=True)
+    phase_observability(report, cfg, params)
     del params
     torch.cuda.empty_cache()
     print("[10] kernel times", flush=True)

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core import bitpack, layouts, pool
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.obs.profiling import annotate
 
 BLOCKWISE_SPAN_TOKENS = 1024  # ~tokens decoded per blockwise-scan step
 
@@ -259,6 +260,7 @@ def attend_blockwise(cache: LayerKVCache, q: torch.Tensor,
     return out.to(q.dtype)
 
 
+@annotate("blockwise_span_scan")
 def _store_scan(cache: LayerKVCache, qg: torch.Tensor, scale: float):
     """Blockwise flash-decode scan over the flushed store only.
 

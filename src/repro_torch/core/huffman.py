@@ -117,6 +117,12 @@ class CodeBook:
         return int(self.children.shape[0])
 
     @property
+    def serialized_bits(self) -> int:
+        """Codebook transmission cost: 4 bits of length a symbol (canonical
+        codes are rebuilt from the lengths alone, MAX_CODE_LEN = 16)."""
+        return N_SYMBOLS * 4
+
+    @property
     def decode_probes(self) -> int:
         """LUT probes per symbol: one per started LUT_CHUNK_BITS of the
         longest codeword (<= 2 under the MAX_CODE_LEN limit)."""

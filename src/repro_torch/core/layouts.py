@@ -13,6 +13,10 @@ registry.  A layout owns:
                      (the ``xla`` backend, plain PyTorch).
 * ``tile_decode``  — the ``FusedTileSpec`` the Fetch kernel
                      (``kernels.fused_kv_attn``) and its plain version use.
+* ``fetch``        — bulk dequantized K/V of a whole dense ring, built on
+                     ``decode_span`` (reconstruction and tests only).
+* ``size_report``  — exact size accounting of an offline-quantized tensor
+                     (``core.quant``), metadata included.
 
 Built-in layouts: ``raw`` (bf16, exact), ``packed`` (error-bounded
 quantizer + no-straddle packing), ``kivi`` (fixed-bit baseline) and
@@ -30,8 +34,80 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitpack, huffman
+from repro_torch.obs.profiling import annotate
 
 RAW_BITS_PER_VALUE = 16  # KV caches are bf16 at rest
+
+
+# ---------------------------------------------------------------------------
+# Size accounting (paper §3.3.2's ~1/128 metadata analysis)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RatioReport:
+    """Exact size accounting for one compressed tensor."""
+
+    n_values: int
+    payload_bits: int
+    scale_bits: int
+    stream_meta_bits: int
+    offset_meta_bits: int
+    codebook_bits: int
+
+    @property
+    def total_bits(self) -> int:
+        return (self.payload_bits + self.scale_bits + self.stream_meta_bits
+                + self.offset_meta_bits + self.codebook_bits)
+
+    @property
+    def ratio(self) -> float:
+        return self.n_values * RAW_BITS_PER_VALUE / max(self.total_bits, 1)
+
+    @property
+    def bits_per_value(self) -> float:
+        return self.total_bits / max(self.n_values, 1)
+
+
+def raw_ratio(q) -> RatioReport:
+    """Uncompressed baseline: 16 bits a value, no metadata."""
+    n = q.codes.numel()
+    return RatioReport(n_values=n, payload_bits=n * RAW_BITS_PER_VALUE, scale_bits=0,
+                       stream_meta_bits=0, offset_meta_bits=0, codebook_bits=0)
+
+
+def kivi_ratio(q, bits: int) -> RatioReport:
+    """KIVI baseline: fixed b-bit payload + 16-bit (min, step) a unit."""
+    n = q.codes.numel()
+    return RatioReport(n_values=n, payload_bits=n * bits, scale_bits=q.meta_bits,
+                       stream_meta_bits=0, offset_meta_bits=0, codebook_bits=0)
+
+
+def huffman_ratio(q, book: huffman.CodeBook, streams_shape: tuple[int, int]) -> RatioReport:
+    """Huffman path sizes from the code histogram (exact bits)."""
+    hist = np.bincount(q.codes.reshape(-1).cpu().numpy(), minlength=huffman.N_SYMBOLS)
+    n = q.codes.numel()
+    n_streams = n // streams_shape[1]
+    n_blocks = max(n_streams // streams_shape[0], 1)
+    return RatioReport(
+        n_values=n, payload_bits=int((hist * book.lengths).sum()), scale_bits=q.meta_bits,
+        stream_meta_bits=n_streams * 16,  # u16 bit count a stream
+        offset_meta_bits=n_blocks * 32,   # u32 offset a block
+        codebook_bits=book.serialized_bits)
+
+
+def packed_ratio(q, block_codes: int) -> RatioReport:
+    """Adaptive fixed-length path sizes: each block at the width of its
+    largest code, padded to whole 32-bit words."""
+    codes = q.codes.reshape(-1, block_codes).cpu().numpy()
+    mx = codes.max(axis=1).astype(np.int64)
+    b = np.maximum(np.ceil(np.log2(mx + 1)), 1).astype(np.int64)
+    n_blocks = codes.shape[0]
+    return RatioReport(
+        n_values=q.codes.numel(), payload_bits=int((((block_codes * b) + 31) // 32 * 32).sum()),
+        scale_bits=q.meta_bits,
+        stream_meta_bits=n_blocks * 8,  # u8 width a block
+        offset_meta_bits=n_blocks * 32, codebook_bits=0)
 
 
 def bits_for_rel_scale(rel_scale: float) -> int:
@@ -166,6 +242,7 @@ class CacheLayout:
 
     name: str = "?"
     supports_fused: bool = False  # the Fetch kernel can decode its tiles
+    needs_codebook: bool = False  # size_report takes a fitted CodeBook
     kivi_step: bool = False       # fixed-bit (KIVI) vs error-bounded steps
 
     def bits_k(self, spec) -> int:
@@ -190,6 +267,31 @@ class CacheLayout:
         ``(k_codes, k_mn, k_st, v_codes, v_mn, v_st)`` with codes f32
         ``[B, H, C, T, D]`` and units ``[B, H, C, D]`` / ``[B, H, C, T]``, or
         ``None`` units when the codes already are the values."""
+        raise NotImplementedError
+
+    def fetch(self, spec, cache):
+        """Bulk Fetch of a dense cache: dequantized K and V bf16
+        ``[B, H, NB, T, D]`` of every ring slot, through ``decode_span`` over
+        the whole ring.  Reconstruction and tests only; the decode path
+        never materializes the store."""
+        kc, k_mn, k_st, vc, v_mn, v_st = self.decode_span(spec, cache, 0, cache.k_store.shape[2])
+        if k_mn is None:
+            return kc, vc
+        f32 = torch.float32
+        k = k_mn.to(f32)[..., None, :] + kc * k_st.to(f32)[..., None, :]
+        v = v_mn.to(f32)[..., :, None] + vc * v_st.to(f32)[..., :, None]
+        return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+    def decompress_k(self, spec, cache) -> torch.Tensor:
+        return self.fetch(spec, cache)[0]
+
+    def decompress_v(self, spec, cache) -> torch.Tensor:
+        return self.fetch(spec, cache)[1]
+
+    def size_report(self, q, *, block_size: int, head_dim: int, kivi_bits: int = 2,
+                    book: huffman.CodeBook | None = None) -> RatioReport:
+        """Exact accounting of an offline-quantized tensor (``core.quant``)
+        stored under this layout."""
         raise NotImplementedError
 
     def tile_decode(self, spec, head_dim: int) -> FusedTileSpec | None:
@@ -268,6 +370,9 @@ class RawLayout(CacheLayout):
         return FusedTileSpec(k_tile=shape, v_tile=shape, has_scales=False,
                              block_size=spec.block_size, head_dim=head_dim, kind="raw")
 
+    def size_report(self, q, *, block_size, head_dim, kivi_bits=2, book=None):
+        return raw_ratio(q)
+
 
 @register_layout("packed")
 class PackedLayout(CacheLayout):
@@ -288,12 +393,13 @@ class PackedLayout(CacheLayout):
     def write_blocks(self, spec, cache, slots, kb, vb) -> None:
         from repro_torch.kernels import pack_encode  # late: kernels import core
 
-        pack_encode.pack_encode(
-            kb.contiguous(), vb.contiguous(), slots.to(torch.int32).contiguous(),
-            cache.k_store, cache.k_min, cache.k_step,
-            cache.v_store, cache.v_min, cache.v_step,
-            bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
-            rel_scale_v=spec.rel_scale_v, kivi=self.kivi_step)
+        with annotate("pack_encode"):
+            pack_encode.pack_encode(
+                kb.contiguous(), vb.contiguous(), slots.to(torch.int32).contiguous(),
+                cache.k_store, cache.k_min, cache.k_step,
+                cache.v_store, cache.v_min, cache.v_step,
+                bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
+                rel_scale_v=spec.rel_scale_v, kivi=self.kivi_step)
 
     def decode_span(self, spec, cache, start, count):
         B, H = cache.k_store.shape[:2]
@@ -312,6 +418,9 @@ class PackedLayout(CacheLayout):
                              block_size=spec.block_size, head_dim=head_dim,
                              bits_k=spec.bits_k, bits_v=spec.bits_v)
 
+    def size_report(self, q, *, block_size, head_dim, kivi_bits=2, book=None):
+        return packed_ratio(q, block_size * head_dim)
+
 
 @register_layout("kivi")
 class KiviLayout(PackedLayout):
@@ -322,6 +431,9 @@ class KiviLayout(PackedLayout):
 
     def bits_v(self, spec) -> int:
         return spec.kivi_bits
+
+    def size_report(self, q, *, block_size, head_dim, kivi_bits=2, book=None):
+        return kivi_ratio(q, kivi_bits)
 
 
 @functools.lru_cache(maxsize=64)
@@ -372,6 +484,7 @@ class HuffmanLayout(PackedLayout):
     """
 
     supports_fused = True
+    needs_codebook = True
 
     def _n_codes(self, spec, bits: int, rel_scale: float) -> int:
         n = round(1.0 / rel_scale) + 1
@@ -421,9 +534,10 @@ class HuffmanLayout(PackedLayout):
         from repro_torch.kernels import huffman_decode  # late: kernels import core
 
         slots, lut, multi, hdr, probes = self._slot_args(spec, store, head_dim, book)
-        codes = huffman_decode.huffman_lut_decode(
-            slots, lut, block_size=spec.block_size, head_dim=head_dim, hdr_words=hdr,
-            probes=probes, multi=multi)
+        with annotate("huffman_lut_decode"):
+            codes = huffman_decode.huffman_lut_decode(
+                slots, lut, block_size=spec.block_size, head_dim=head_dim, hdr_words=hdr,
+                probes=probes, multi=multi)
         return codes.reshape(*store.shape[:3], spec.block_size, head_dim)
 
     def write_blocks(self, spec, cache, slots, kb, vb) -> None:
@@ -445,9 +559,10 @@ class HuffmanLayout(PackedLayout):
         sl = slice(start, start + count)
         D, T = cache.head_dim, spec.block_size
         ks, vs = cache.k_store[:, :, sl], cache.v_store[:, :, sl]
-        kc, vc = huffman_decode.huffman_lut_decode_kv(
-            self._slot_args(spec, ks, D, self.book_k(spec)),
-            self._slot_args(spec, vs, D, self.book_v(spec)), block_size=T, head_dim=D)
+        with annotate("huffman_lut_decode"):
+            kc, vc = huffman_decode.huffman_lut_decode_kv(
+                self._slot_args(spec, ks, D, self.book_k(spec)),
+                self._slot_args(spec, vs, D, self.book_v(spec)), block_size=T, head_dim=D)
         kc = kc.reshape(*ks.shape[:3], T, D)
         vc = vc.reshape(*vs.shape[:3], T, D)
         return (kc.to(torch.float32), cache.k_min[:, :, sl], cache.k_step[:, :, sl],
@@ -461,6 +576,11 @@ class HuffmanLayout(PackedLayout):
                              block_size=spec.block_size, head_dim=head_dim, kind="huffman",
                              hdr_k=hk, hdr_v=hv, probes_k=book_k.decode_probes,
                              probes_v=book_v.decode_probes, book_k=book_k, book_v=book_v)
+
+    def size_report(self, q, *, block_size, head_dim, kivi_bits=2, book=None):
+        if book is None:
+            raise ValueError("huffman size_report needs a fitted codebook (book=)")
+        return huffman_ratio(q, book, (block_size, head_dim))
 
     def bytes_per_token(self, spec, n_kv_heads: int, head_dim: int) -> float:
         """Allocated (worst-case slot) bytes a cached token and layer, scales

@@ -24,6 +24,7 @@ from repro_torch.kernels.fused_kv_attn import fused_cache_attention  # noqa: F40
 from repro_torch.kernels.huffman_decode import (  # noqa: F401  (entry points)
     huffman_attn_scores, huffman_decode)
 from repro_torch.kernels.pack_encode import quant_pack  # noqa: F401  (entry point)
+from repro_torch.obs.profiling import annotate
 
 _BACKENDS: dict[str, object] = {}
 
@@ -87,11 +88,15 @@ def cache_decode_attention(cache, q: torch.Tensor, scale: float | None = None) -
     tile = spec.impl.tile_decode(spec, cache.head_dim)
     if tile is None:
         raise ValueError(f"the Fetch kernel needs a fused-capable layout, got {spec.layout!r}")
-    out = fused_cache_attention(
-        q.to(torch.float32).contiguous(),
-        cache.k_store, cache.k_min, cache.k_step,
-        cache.v_store, cache.v_min, cache.v_step,
-        cache.k_buf, cache.v_buf,
-        torch.clamp(cache.n_flushed, max=spec.n_blocks), cache.buf_len,
-        cache.page_tab if spec.paged else None, tile=tile, block_size=spec.block_size, scale=scale)
+    # Profiling attribution (DESIGN.md §14): the in-situ-decompression
+    # attention is one named compression stage.
+    with annotate("fused_attention"):
+        out = fused_cache_attention(
+            q.to(torch.float32).contiguous(),
+            cache.k_store, cache.k_min, cache.k_step,
+            cache.v_store, cache.v_min, cache.v_step,
+            cache.k_buf, cache.v_buf,
+            torch.clamp(cache.n_flushed, max=spec.n_blocks), cache.buf_len,
+            cache.page_tab if spec.paged else None, tile=tile, block_size=spec.block_size,
+            scale=scale)
     return out.to(q.dtype)

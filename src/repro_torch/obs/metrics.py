@@ -1,5 +1,5 @@
-"""Typed serving metrics: counters, fixed-bucket histograms, and the
-registry that names them (the port's own copy of ``repro.obs.metrics``;
+"""Typed serving metrics: counters, gauges, fixed-bucket histograms, and
+the registry that names them (the port's own copy of ``repro.obs.metrics``;
 host-side Python, no tensors).
 
 * ``Counter`` — monotone event count (``inc``).
@@ -9,10 +9,9 @@ host-side Python, no tensors).
   one ``bisect`` plus two scalar adds, and quantiles interpolate inside the
   winning bucket (the Prometheus ``histogram_quantile`` estimate).
 * ``MetricsRegistry`` — dotted-name -> metric map with a nested-dict
-  ``snapshot()`` (the substrate of ``Server.stats()``).
-
-The reference's Prometheus exposition comes with the telemetry slice of
-the port.
+  ``snapshot()`` (the substrate of ``Server.stats()`` and of the JSON
+  export) and a ``prometheus_text()`` exposition, line for line the
+  reference's.
 """
 
 from __future__ import annotations
@@ -145,6 +144,9 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str, edges=LATENCY_BUCKETS_S) -> Histogram:
         m = self._metrics.get(name)
         if m is None:
@@ -162,9 +164,15 @@ class MetricsRegistry:
         return m
 
     # -- views ----------------------------------------------------------------
+    def __contains__(self, name: str) -> bool:
+        return name in self._metrics
+
+    def get(self, name: str):
+        return self._metrics.get(name)
+
     def snapshot(self) -> dict:
-        """Nested dict keyed by the dotted-name segments: counters become
-        leaves, histograms their summary dicts."""
+        """Nested dict keyed by the dotted-name segments: counters and gauges
+        become leaves, histograms their summary dicts."""
         out: dict = {}
         for name in sorted(self._metrics):
             node = out
@@ -173,3 +181,28 @@ class MetricsRegistry:
                 node = node.setdefault(p, {})
             node[parts[-1]] = self._metrics[name].snapshot()
         return out
+
+    def prometheus_text(self, prefix: str = "kvcomp") -> str:
+        """Prometheus text exposition of every registered metric.  Dotted
+        names flatten to underscores; histograms emit the standard
+        ``_bucket``/``_sum``/``_count`` cumulative series."""
+        lines: list[str] = []
+        for name in sorted(self._metrics):
+            m = self._metrics[name]
+            flat = f"{prefix}_{name.replace('.', '_').replace('-', '_')}"
+            if isinstance(m, Counter):
+                lines.append(f"# TYPE {flat} counter")
+                lines.append(f"{flat} {m.value}")
+            elif isinstance(m, Gauge):
+                lines.append(f"# TYPE {flat} gauge")
+                lines.append(f"{flat} {m.value}")
+            elif isinstance(m, Histogram):
+                lines.append(f"# TYPE {flat} histogram")
+                cum = 0
+                for edge, c in zip(m.edges, m.counts):
+                    cum += c
+                    lines.append(f'{flat}_bucket{{le="{edge:g}"}} {cum}')
+                lines.append(f'{flat}_bucket{{le="+Inf"}} {m.count}')
+                lines.append(f"{flat}_sum {m.sum}")
+                lines.append(f"{flat}_count {m.count}")
+        return "\n".join(lines) + "\n"

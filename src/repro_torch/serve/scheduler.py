@@ -60,10 +60,17 @@ cleanup path that releases its pages.  ``max_pending`` bounds the queue
 a server that makes no progress for ``stall_steps`` steps raises
 ``ServeError``.
 
+Observability (DESIGN.md §14): every counter lives in one
+``MetricsRegistry`` (``Server.metrics``) that ``stats()`` is a view over.
+``ServerConfig.trace`` turns on a ring-buffered event log (``Server.trace``)
+of every scheduler decision, stamped with the same floats the ``Result``
+timings come from; ``Server.shutdown`` exports the JSON snapshot, its
+Prometheus text and the Perfetto-loadable Chrome trace.
+
 The server is cooperative: ``Handle.result`` / ``Handle.tokens`` pump
 ``Server.step`` until their request completes; ``Server.run`` drains.
 
-Options of later slices of the port (sharding and event tracing) raise
+Sharding, the option of a later slice of the port, raises
 ``NotImplementedError``.
 """
 
@@ -71,7 +78,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import time
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
@@ -82,6 +91,7 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import TRACE_LEVELS, EventTrace
 from repro_torch.serve.faults import InvariantAuditor, QueueFull, ServeError
 from repro_torch.serve.prefix import PrefixIndex
 
@@ -115,7 +125,6 @@ class Result:
 # Options of later slices: field -> (the value this slice serves, the slice).
 _LATER = {
     "mesh": (None, "multi-GPU sharded serving"),
-    "trace": ("off", "event tracing and profiling"),
 }
 
 
@@ -146,7 +155,13 @@ class ServerConfig:
     # Per-step chunked-prefill token budget, a positive multiple of the cache
     # block_size; None = 8 blocks.
     prefill_chunk_tokens: int | None = None
-    trace: str = "off"             # a later slice
+    # Structured event trace (DESIGN.md §14): "off" records nothing (the
+    # call sites are skipped: zero events, the same launches); "events"
+    # every scheduler decision; "full" adds one span per decode step.
+    trace: str = "off"
+    # Ring capacity of the trace: a longer run keeps the most recent window
+    # and counts what it dropped.
+    trace_capacity: int = 65536
     # Request lifecycle (DESIGN.md §15).  Preemptions a request may take
     # before it fails alone ("error"); the oldest request in the server is
     # exempt, so the workload drains instead of thrashing.
@@ -178,6 +193,10 @@ class ServerConfig:
             raise ValueError(
                 "prefill_chunk_tokens must be a positive multiple of the "
                 f"cache block_size, got {self.prefill_chunk_tokens}")
+        if self.trace not in TRACE_LEVELS:
+            raise ValueError(f"trace must be off|events|full, got {self.trace!r}")
+        if self.trace_capacity < 1:
+            raise ValueError(f"trace capacity must be >= 1, got {self.trace_capacity}")
         if self.max_requeues < 0:
             raise ValueError(f"max_requeues must be >= 0, got {self.max_requeues}")
         if self.max_pending is not None and self.max_pending < 1:
@@ -281,6 +300,10 @@ class Handle:
                 srv._h_ttft.observe(t - self._t_submit)
             else:
                 srv._h_itl.observe(t - self._token_times[-2])
+            if srv._tr is not None:
+                # The same float as token_times: the trace's timings equal
+                # the Result's exactly.
+                srv._tr.emit("token", req=self.id, t=t, index=len(self._token_times) - 1)
         r = self.request
         if r.eos_id is not None and int(tok) == r.eos_id:
             self._finish = "eos"
@@ -289,6 +312,8 @@ class Handle:
         else:
             return False
         self._t_end = t
+        if srv._tr is not None:
+            srv._tr.emit("retire", req=self.id, t=t, reason=self._finish)
         return True
 
 
@@ -347,12 +372,20 @@ class Server:
         self._next_req_id = 0
         self._prefill_tasks: dict[int, _PrefillTask] = {}
 
+        # One registry carries every counter of the server and its pool and
+        # index; ``self._tr`` is the trace's hot-path gate, None when off.
         self.metrics = MetricsRegistry()
+        self.trace = EventTrace(scfg.trace, scfg.trace_capacity)
+        self._tr = self.trace if self.trace.enabled else None
         self._preemptions = self.metrics.counter("serve.preemptions")
         self._h_ttft = self.metrics.histogram("serve.ttft_s")
         self._h_itl = self.metrics.histogram("serve.itl_s")
         self._h_queue = self.metrics.histogram("serve.queue_wait_s")
-        self._decode_steps = self.metrics.counter("serve.decode_steps")
+        self._g_active = self.metrics.gauge("serve.active")
+        self._g_pending = self.metrics.gauge("serve.pending")
+        # Batched decode steps run (not a registry metric: the reference's
+        # registry has none).
+        self.decode_steps = 0
         self._pf = {k: self.metrics.counter(f"serve.prefill.{k}")
                     for k in ("prefill_tokens", "chunks", "coscheduled_tokens",
                               "stalled_decode_steps", "prefill_preemptions")}
@@ -367,6 +400,8 @@ class Server:
         self._progress = 0   # bumps on any token, chunk, admission, retirement
         self._stall = 0      # consecutive steps with work left and no progress
         self._has_deadlines = scfg.default_deadline_s is not None
+        # One data shard, under the reference's name.
+        self._preempt_shard0 = self.metrics.counter("serve.shard0.preemptions")
 
         # The dense twin of every layer's spec: uniform blocks are what
         # block-chunked admission (and one page id for all layers) needs.
@@ -477,6 +512,10 @@ class Server:
         h = Handle(self, request)
         h.id = self._next_req_id
         self._next_req_id += 1
+        if self._tr is not None:
+            self._tr.emit("submit", req=h.id, t=h._t_submit,
+                          prompt_len=len(request.prompt),
+                          max_new_tokens=request.max_new_tokens)
         self._queue.append(h)
         return h
 
@@ -521,17 +560,23 @@ class Server:
         budget never fails (submit ids never change, unlike ``_row_seq``)."""
         return min((h.id for h in self._all_handles()), default=-1)
 
-    def _finalize(self, handle: Handle, reason: str, error: str | None = None) -> None:
+    def _finalize(self, handle: Handle, reason: str, error: str | None = None,
+                  **data) -> None:
         """Mark ``handle`` terminal with ``reason`` ("error" | "cancelled" |
-        "deadline") after ``_evict`` released what it held."""
+        "deadline") after ``_evict`` released what it held; ``data`` joins
+        the trace event."""
         handle._finish = reason
         handle._error = error
         if handle._t_end is None:
             handle._t_end = time.monotonic()
-        counter = {"error": "failures", "cancelled": "cancelled",
-                   "deadline": "deadline_exceeded"}[reason]
+        kind, counter = {"error": ("fail", "failures"),
+                         "cancelled": ("cancel", "cancelled"),
+                         "deadline": ("deadline", "deadline_exceeded")}[reason]
         self._lc[counter].inc()
         self._progress += 1  # a retirement is progress, even an abnormal one
+        if self._tr is not None:
+            self._tr.emit(kind, req=handle.id, t=handle._t_end, reason=reason,
+                          **({"error": error} if error else {}), **data)
 
     def _evict(self, handle: Handle) -> None:
         """Remove an unfinished request from the queue, its PREFILLING task
@@ -578,7 +623,7 @@ class Server:
             d = self._deadline_of(handle)
             if d is not None and now - handle._t_submit > d:
                 self._evict(handle)
-                self._finalize(handle, "deadline")
+                self._finalize(handle, "deadline", deadline_s=d)
 
     # -- admission --------------------------------------------------------------
     def _forced(self, handle: Handle) -> np.ndarray:
@@ -644,6 +689,11 @@ class Server:
         if handle._t_first is None:
             handle._t_first = t0
             self._h_queue.observe(t0 - handle._t_submit)
+        if self._tr is not None:
+            self._tr.emit("prefill_start", req=handle.id, t=t0, row=row, hit_blocks=j,
+                          forced_tokens=n)
+            if j:
+                self._tr.emit("prefix_hit", req=handle.id, blocks=j)
         state = None
         if self.paged:
             if j:
@@ -687,19 +737,33 @@ class Server:
         if self._fault("pool_alloc") or not self.pool.free_pages:
             return None  # (an injected fault reads as a full pool)
         page = self.pool.alloc(1)[0]
+        req = self._req_at(row) if self._tr is not None else -1
         if existing >= 0:  # shared: only in prefix mode
             self.pool.release([existing])
             if self.prefix_mode:
                 self._pfx["cow_breaks"].inc()
+                if self._tr is not None:
+                    self._tr.emit("cow_break", req=req, row=row, slot=slot, page=existing)
         self._pt_host[row, slot] = page
+        if self._tr is not None:
+            self._tr.emit("page_assign", req=req, row=row, slot=slot, page=page)
         return page
+
+    def _req_at(self, row: int) -> int:
+        """Id of the request on ``row``: its PREFILLING task's, else its
+        decode slot's."""
+        task = self._prefill_tasks.get(row)
+        return task.handle.id if task is not None else self._slots[row].id
 
     def _reclaim(self, row: int) -> int | None:
         """The rest of the ladder once the pool reads as full: evict one cold
         index block (None: retry the claim), else the preemption victim, the
         youngest row that holds pages (-1 when the sweep finds none)."""
         if self._share and not self._fault("prefix_evict"):
-            if self.index.evict(self.pool, 1):
+            ev = self.index.evict(self.pool, 1)
+            if ev:
+                if self._tr is not None:
+                    self._tr.emit("prefix_evict", blocks=ev)
                 return None
         if self._fault("reclaim_sweep"):
             return -1
@@ -787,9 +851,14 @@ class Server:
                 if fused and not all(self._ensure_chunk_page(task, pos + i * T)
                                      for i in range(kb)):
                     break  # the reclaim preempted this very task
+                tc = time.monotonic() if self._tr is not None else 0.0
                 pages = self._device_pages(row) if fused else None
                 for i in range(kb):
                     logits = self._run_chunk(task, pos + i * T, T, pages)
+                if self._tr is not None:
+                    self._tr.emit("prefill_chunk", req=handle.id, t=tc,
+                                  dur=time.monotonic() - tc, row=row, pos=pos,
+                                  tokens=kb * T, chunks=kb)
                 task.pos = pos + kb * T
                 spent += kb * T
                 self._count_chunks(task, pos, kb, T)
@@ -799,7 +868,12 @@ class Server:
                 continue
             if fused and C == T and not self._ensure_chunk_page(task, pos):
                 break  # the reclaim preempted this very task
+            tc = time.monotonic() if self._tr is not None else 0.0
             logits = self._run_chunk(task, pos, C, self._device_pages(row) if fused else None)
+            if self._tr is not None:
+                self._tr.emit("prefill_chunk", req=handle.id, t=tc,
+                              dur=time.monotonic() - tc, row=row, pos=pos, tokens=C,
+                              chunks=1)
             task.pos = pos + C
             spent += C
             self._count_chunks(task, pos, 1, C)
@@ -823,6 +897,8 @@ class Server:
         del self._prefill_tasks[row]
         if handle._t_start is None:
             handle._t_start = time.monotonic()
+        if self._tr is not None:
+            self._tr.emit("prefill_finish", req=handle.id, row=row, chunks=task.chunks)
         if handle._push(first):
             # Finished at admission: the slot stays free and nothing is
             # indexed (nothing else rides on this prompt).
@@ -938,6 +1014,9 @@ class Server:
         handle._toks.clear()
         self._queue.appendleft(handle)
         self._preemptions.inc()
+        self._preempt_shard0.inc()
+        if self._tr is not None:
+            self._tr.emit("preempt", req=handle.id, row=row, prefilling=task is not None)
 
     def _ensure_pages(self) -> None:
         """Give every decoding row whose buffer flushes on the NEXT decode
@@ -1063,11 +1142,17 @@ class Server:
             # Injected transient failure before the launch: the state is
             # untouched and the next step retries with the same inputs.
             return True
+        full = self._tr is not None and self._tr.full
+        td = time.monotonic() if full else 0.0
         logits, _ = M.decode_step(
             self.params, self.cfg, torch.as_tensor(self._cur, device=self.device),
             torch.as_tensor(self._pos, device=self.device), self.state)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-        self._decode_steps.inc()
+        if full:
+            # One span a batched decode step; the copy to the host above
+            # waited for the card, so ``dur`` covers device time too.
+            self._tr.emit("decode_step", t=td, dur=time.monotonic() - td, rows=len(rows))
+        self.decode_steps += 1
         self._progress += len(rows)
         for row in rows:
             tok = int(nxt[row])
@@ -1097,14 +1182,15 @@ class Server:
 
     def stats(self) -> dict:
         """Serving stats: a view over ``self.metrics``, with the reference's
-        keys (``pool`` in paged mode, ``prefix`` in prefix mode; ``shards``
+        key tree (``pool`` in paged mode, ``prefix`` in prefix mode; ``shards``
         with one entry, as an unsharded reference server reports)."""
+        self._g_active.set(self.active)
+        self._g_pending.set(self.pending)
         s = {
             "cache_mode": "paged" if self.paged else "dense",
             "active": self.active,
             "pending": self.pending,
             "preemptions": self._preemptions.value,
-            "decode_steps": self._decode_steps.value,
             "prefill": {
                 "mode": "chunked" if self.prefill_chunked else "solo",
                 "chunk_tokens": self._chunk_budget,
@@ -1117,10 +1203,15 @@ class Server:
                 "itl_s": self._h_itl.snapshot(),
                 "queue_wait_s": self._h_queue.snapshot(),
             },
+            "trace": {
+                "level": self.trace.level,
+                "events": len(self.trace.events),
+                "dropped": self.trace.dropped,
+            },
             "lifecycle": {"submitted": self._next_req_id,
                           **{k: c.value for k, c in self._lc.items()}},
         }
-        shard = {"preemptions": self._preemptions.value}
+        shard = {"preemptions": self._preempt_shard0.value}
         if self.paged:
             ps = self.pool.stats()
             s["pool"] = {**ps, "per_shard": [ps]}
@@ -1135,3 +1226,24 @@ class Server:
                 p["index"] = PrefixIndex.merge_stats([self.index])
             s["prefix"] = p
         return s
+
+    def shutdown(self, metrics_out=None, trace_out=None) -> dict:
+        """Export the final telemetry and return the snapshot (DESIGN.md
+        §14): ``{"stats", "metrics"}``, with ``audit`` and ``faults`` when
+        the server has an auditor or a fault plan.  ``metrics_out`` writes
+        it as JSON and the Prometheus text next to it (the suffix swapped
+        for ``.prom``); ``trace_out`` writes the Chrome trace-event JSON
+        when tracing is on (open it at ui.perfetto.dev).  The server stays
+        usable: "shutdown" names the lifecycle hook, not a teardown."""
+        snap = {"stats": self.stats(), "metrics": self.metrics.snapshot()}
+        if self.auditor is not None:
+            snap["audit"] = self.auditor.report()
+        if self.faults is not None:
+            snap["faults"] = self.faults.stats()
+        if metrics_out:
+            out = Path(metrics_out)
+            out.write_text(json.dumps(snap, indent=2, default=float))
+            out.with_suffix(".prom").write_text(self.metrics.prometheus_text())
+        if trace_out and self.trace.enabled:
+            self.trace.write_chrome(trace_out)
+        return snap

@@ -155,14 +155,15 @@ def test_entry_points_need_cuda_unless_told(setup, monkeypatch):
     ("trace", "events"), ("faults", object()), ("audit_every", 2),
     ("max_pending", 4), ("default_deadline_s", 1.0)])
 def test_later_slice_options_raise(field, value):
-    """Options of later slices (sharding, event tracing) raise; the prefix
-    cache and the lifecycle options, once refused here, are served now."""
+    """Options of later slices (sharding) raise; the prefix cache, the
+    lifecycle options and the event trace, once refused here, are served
+    now."""
     if field in TS._LATER:
         with pytest.raises(NotImplementedError, match="later slice"):
             TS.ServerConfig(**{field: value})
     else:
         assert getattr(TS.ServerConfig(**{field: value}), field) is value
-    assert set(TS._LATER) == {"mesh", "trace"}
+    assert set(TS._LATER) == {"mesh"}
 
 
 def test_request_deadline_raises(setup):
