@@ -5,7 +5,7 @@
     python3 chip_smoke.py --split-sweep   # phases 1, 2, then the Fetch at S = 1, 2, 4
     python3 chip_smoke.py --walk-parent DIR   # phases 1, 2, then DIR's walk kernels vs these
 
-Phases, in the order they run (11 after 4, 12 after 9, 13 to 15 after
+Phases, in the order they run (11 after 4, 12 after 9, 13 to 16 after
 12, times last); any failure exits non-zero before the result lines:
 
 1. Device: needs CUDA; prints the card's name and power limit.
@@ -115,6 +115,31 @@ Phases, in the order they run (11 after 4, 12 after 9, 13 to 15 after
    the CLI (``python -m repro_torch.launch.serve``, paged, prefix on, trace
    full, audit every 4 steps) as a subprocess: exit 0, its three files
    written.
+16. The MoE family at full width, once Yi-6B's weights are freed (each
+   model freed before the next; the peak device memory of each printed):
+   (c) phase 3's checks at Mixtral-8x22B's shapes (Hkv 8, G 6): the Fetch
+   within FETCH_ATOL of its plain version for packed, kivi, raw and
+   huffman, rows alone == in the batch, two launches bit-identical,
+   huffman bit-identical to packed, the Store bit-exact; (a) Qwen3-30B-A3B
+   (128 experts top-8, qk-norm), 16 of its 48 layers, random float32
+   weights: phase 5's four prompts, longest first, 40, 32, 28 and 24 new
+   tokens, chunked admission at 512 tokens, served (i) dense, (ii) paged
+   in a pool that holds all four rows, (iii) with huffman caches, dense,
+   and (iv) dense again; the tokens of (ii) to (iv) must equal (i)'s,
+   every pure decode step must launch the Fetch (and, packed, the Store)
+   once a layer, (iii) must run the slot LUT decode, and the rows must
+   retire from the highest down (a retired row keeps routing beside the
+   live ones, and only below them do paged and dense agree); one decode
+   step and 512 prompt tokens are profiled with the expert matmuls (the
+   ``kvcomp/moe_experts`` scope) as a group of their own; (b)
+   Mixtral-8x22B (8 experts top-2, a 4096-token window), 2 of its 56
+   layers: request A (4600 prompt tokens, 64 new) wraps its 64-block ring
+   in prefill and decode, B (600, 16) retires while A decodes; dense and
+   paged give equal tokens, and before A's last step every layer's Fetch
+   on the live wrapped state is within FETCH_ATOL of its plain version,
+   each row alone == in the batch.  Phase 16's launches join the JSON
+   line's counts.  No batched == solo here: the expert capacity is shared
+   by a batch's rows, in the reference as here.
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
@@ -178,6 +203,17 @@ SUFFIX_LENS = (40, 100, 170, 230, 290, 360, 420, 490)
 PREFIX_NEW = 32
 PREFIX_TIGHT_PAGES = 24  # evicts index blocks and preempts (CPU run of the same lengths)
 CHAOS_SEED = 20260808    # phase 14's fault plan
+# Phase 16, the MoE family.  Qwen3-30B-A3B: phase 5's prompt lengths, longest
+# first, (prompt tokens, new tokens); the budgets make the rows retire from
+# the highest down (see phase_moe), and every request crosses a block
+# boundary in decode.  Mixtral-8x22B: request A wraps the 4096-token
+# window's ring of 64 blocks in prefill and in decode; B retires while A
+# decodes.
+MOE_REQS = ((1000, 40), (750, 32), (500, 28), (300, 24))
+QWEN_MOE_LAYERS = 16   # of 48: 2.49 GB of float32 weights a layer
+MIXTRAL_LAYERS = 2     # of 56: 10.0 GB a layer
+MIXTRAL_SEQ = 8192
+MIXTRAL_REQS = ((4600, 64), (600, 16))  # (prompt tokens, new tokens): A, B
 
 
 def card_line() -> str:
@@ -214,26 +250,28 @@ def bf16_bits(t):
     return t.view(torch.int16)
 
 
-def make_cache(layout: str, nb_valid, buf_len, seed: int):
-    """A Yi-6B-shaped layer cache with random contents in every slot, written
-    through the Store kernel (packed layouts) and given per-row lengths."""
+def make_cache(layout: str, nb_valid, buf_len, seed: int, hkv: int = HKV, g_: int = G):
+    """A layer cache of ``hkv`` KV heads (Yi-6B's 4 by default) with random
+    contents in every slot, written through the Store kernel (packed
+    layouts) and given per-row lengths, and a q of ``g_`` query heads a KV
+    head."""
     import torch
     from repro_torch.core import cache as C
 
     b = len(nb_valid)
     spec = C.CacheSpec(layout=layout, block_size=T, max_seq=NB * T)
-    c = C.init_layer_cache(spec, b, HKV, D, device="cuda")
+    c = C.init_layer_cache(spec, b, hkv, D, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    kb = torch.randn((b, HKV, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
-    vb = torch.randn((b, HKV, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
+    kb = torch.randn((b, hkv, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
+    vb = torch.randn((b, hkv, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
     slots = torch.arange(NB, device="cuda", dtype=torch.int32)[None].expand(b, NB)
     spec.impl.write_blocks(spec, c, slots, kb, vb)
     c.k_buf.copy_(torch.randn(c.k_buf.shape, generator=g, device="cuda"))
     c.v_buf.copy_(torch.randn(c.v_buf.shape, generator=g, device="cuda"))
     c.n_flushed.copy_(torch.as_tensor(nb_valid, dtype=torch.int32))
     c.buf_len.copy_(torch.as_tensor(buf_len, dtype=torch.int32))
-    q = torch.randn((b, HKV * G, D), generator=g, device="cuda")
+    q = torch.randn((b, hkv * g_, D), generator=g, device="cuda")
     return spec, c, q
 
 
@@ -258,10 +296,11 @@ def fetch_args(spec, c):
     import torch
 
     args = (c.k_store, c.k_min, c.k_step, c.v_store, c.v_min, c.v_step, c.k_buf,
-            c.v_buf, torch.clamp(c.n_flushed, max=NB), c.buf_len)
+            c.v_buf, torch.clamp(c.n_flushed, max=c.spec.n_blocks), c.buf_len)
     if c.spec.paged:
         args += (c.page_tab,)
-    return args, dict(tile=spec.impl.tile_decode(spec, D), block_size=T)
+    return args, dict(tile=spec.impl.tile_decode(spec, c.k_buf.shape[-1]),
+                      block_size=spec.block_size)
 
 
 def huffman_slot_bytes(spec, c, nb_valid) -> int:
@@ -324,7 +363,8 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, 
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
-def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None) -> None:
+def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None, hkv: int = HKV,
+                          g_: int = G) -> None:
     """The same random blocks stored packed and huffman hold the same codes
     and scales, so the Fetch kernel's outputs must be bit-identical (dense,
     or paged on the same page map when ``holes`` is given)."""
@@ -333,7 +373,7 @@ def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None) -> None:
 
     out = {}
     for layout in ("packed", "huffman"):
-        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=seed)
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=seed, hkv=hkv, g_=g_)
         if holes is not None:
             c = make_paged(c, nb_valid, seed=seed, holes=holes)
         args, kw = fetch_args(spec, c)
@@ -374,15 +414,18 @@ def split_rule_checks(spec, c, q) -> None:
           f"{q.shape[0]}/{q.shape[0]} rows alone == in the batch")
 
 
-def phase_kernels(report: dict) -> None:
-    """Phase 3: each kernel against its plain version on the card."""
+def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = None) -> None:
+    """Phase 3 (and 16(c) at Mixtral's ``hkv``, ``g_``): each kernel against
+    its plain version on the card.  The errors go into ``report`` (under
+    ``report[key]`` when given)."""
     import torch
     from repro_torch.kernels import fused_kv_attn, pack_encode
 
+    out = report if key is None else report.setdefault(key, {})
     nb_valid, buf_len = [64, 37, 1, 0], [0, 63, 17, 5]
     fetch_err = 0.0
     for i, layout in enumerate(("packed", "kivi", "raw", "huffman")):
-        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=i)
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=i, hkv=hkv, g_=g_)
         args, kw = fetch_args(spec, c)
         got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
         want = fused_kv_attn.plain(q, *args, **kw)
@@ -392,20 +435,20 @@ def phase_kernels(report: dict) -> None:
             raise AssertionError(f"Fetch kernel vs plain ({layout}): max |err| {err}")
         print(f"  fetch {layout:7s} max|kernel-plain| = {err:.3e} (tol {FETCH_ATOL})")
         if layout == "huffman":
-            report["fetch_huffman_err"] = err
+            out["fetch_huffman_err"] = err
         else:
             fetch_err = max(fetch_err, err)
         split_rule_checks(spec, c, q)
-    same_blocks_identical(nb_valid, buf_len, seed=9)
+    same_blocks_identical(nb_valid, buf_len, seed=9, hkv=hkv, g_=g_)
 
     store_err = 0.0
     for layout, dt, n in (("packed", torch.bfloat16, 1), ("kivi", torch.bfloat16, 1),
                           ("packed", torch.float32, 3)):
-        spec, c, _ = make_cache(layout, nb_valid, buf_len, seed=7)
+        spec, c, _ = make_cache(layout, nb_valid, buf_len, seed=7, hkv=hkv, g_=g_)
         g = torch.Generator(device="cuda")
         g.manual_seed(11)
-        kb = torch.randn((B, HKV, n, T, D), generator=g, device="cuda").to(dt)
-        vb = torch.randn((B, HKV, n, T, D), generator=g, device="cuda").to(dt)
+        kb = torch.randn((B, hkv, n, T, D), generator=g, device="cuda").to(dt)
+        vb = torch.randn((B, hkv, n, T, D), generator=g, device="cuda").to(dt)
         slots = torch.tensor([[5 + j for j in range(n)], [NB] * n,
                               [NB - 1 - j for j in range(n)], [j for j in range(n)]],
                              dtype=torch.int32, device="cuda")  # row 1 drops
@@ -429,7 +472,7 @@ def phase_kernels(report: dict) -> None:
             raise AssertionError("Store kernel wrote a dropped row")
         print(f"  store {layout:6s} {str(dt):14s} n={n}: words and bf16 scales bit-exact")
     print(f"  store max|kernel-plain| of the bf16 scales = {store_err:.3e} (tol 0)")
-    report["fetch_err"], report["store_err"] = fetch_err, store_err
+    out["fetch_err"], out["store_err"] = fetch_err, store_err
 
 
 def phase_paged_kernels(report: dict) -> None:
@@ -855,6 +898,15 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def _kernel_group(name: str) -> str:
+    n = name.lower()
+    return ("fetch kernel" if "fused_kv_attn" in n else
+            "store kernel" if "pack_encode" in n else
+            "huffman LUT decode kernel" if "huffman_lut_decode" in n else
+            "matmul (cuBLAS)" if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass"))
+            else "other PyTorch kernels")
+
+
 def _kernel_groups(prof) -> tuple[dict, list]:
     """Device ms by kernel group, and the five costliest kernels, from a
     torch.profiler run."""
@@ -870,12 +922,7 @@ def _kernel_groups(prof) -> tuple[dict, list]:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        n = e.key.lower()
-        g = ("fetch kernel" if "fused_kv_attn" in n else
-             "store kernel" if "pack_encode" in n else
-             "huffman LUT decode kernel" if "huffman_lut_decode" in n else
-             "matmul (cuBLAS)" if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass"))
-             else "other PyTorch kernels")
+        g = _kernel_group(e.key)
         acc = groups.setdefault(g, [0.0, 0])
         acc[0] += us / 1e3
         acc[1] += e.count
@@ -975,12 +1022,12 @@ def _chunk_profile(cfg, params, server, prompt) -> float:
     return (runtime.launches["huffman_lut_decode"] - n0) / 2
 
 
-def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = False,
+def _serve_run(cfg, params, prompts, scfg, new_tokens, profile: bool = False,
                stagger: bool = False, after=None, server=None) -> dict:
     """Serve ``prompts`` through one server (``server``, else a new one of
-    ``scfg``), stepping by hand: the launch counts of every pure decode step
-    (the kernels that launched, and how often), the peak number of live
-    rows, and (``profile``) one decode step with every row live and, after
+    ``scfg``), ``new_tokens`` each (or one budget a prompt), stepping by
+    hand: the launch counts of every pure decode step (the kernels that
+    launched, and how often), the peak number of live rows, and (``profile``) one decode step with every row live and, after
     the run, one prefill chunk.  ``stagger`` submits the first prompt alone
     and the others once it decodes; ``after(server)`` runs on the drained
     server and its dict joins the result."""
@@ -989,17 +1036,17 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
     from repro_torch.serve.scheduler import Request, Server
 
     server = server if server is not None else Server(cfg, params, scfg)
-    late = list(prompts[1:]) if stagger else []
-    handles = [server.submit(Request(prompt=p, max_new_tokens=new_tokens))
-               for p in prompts[:len(prompts) - len(late)]]
+    news = [new_tokens] * len(prompts) if isinstance(new_tokens, int) else list(new_tokens)
+    late = list(zip(prompts, news))[1:] if stagger else []
+    handles = [server.submit(Request(prompt=p, max_new_tokens=n))
+               for p, n in list(zip(prompts, news))[:len(prompts) - len(late)]]
     rows = len(prompts)
     torch.cuda.synchronize()
     runtime.reset_launches()
     peak, per_step, wall, out = 0, set(), 0.0, {}
     while True:
         if late and server.active:
-            handles += [server.submit(Request(prompt=p, max_new_tokens=new_tokens))
-                        for p in late]
+            handles += [server.submit(Request(prompt=p, max_new_tokens=n)) for p, n in late]
             late = []
         st0, d0, l0 = server.stats(), server.decode_steps, dict(runtime.launches)
         if (profile and "profile" not in out and server.active == rows
@@ -1051,8 +1098,8 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens: int, profile: bool = Fals
               f"freed, {p['pages_live']} live at the end")
     print(f"  launches: {out['launches']}; per pure decode step: "
           f"{[dict(x) for x in sorted(per_step)]}")
-    for toks, why in zip(out["tokens"], out["reasons"]):
-        if ((why == "length" and toks.shape != (new_tokens,)) or len(toks) > new_tokens
+    for toks, why, new in zip(out["tokens"], out["reasons"], news):
+        if ((why == "length" and toks.shape != (new,)) or len(toks) > new
                 or (len(toks) and (toks.min() < 0 or toks.max() >= cfg.vocab_size))):
             raise AssertionError(f"bad output ({why}): {toks}")
     if after is not None:
@@ -1634,6 +1681,264 @@ def phase_observability(report: dict, cfg, params) -> None:
     print(f"  phase 15: {time.monotonic() - t_phase:.1f} s; card: {card_line()}")
 
 
+def moe_model(arch: str, n_layers: int):
+    """A full-width MoE config cut to ``n_layers`` layers, with random
+    float32 weights from seed 0 (the peak memory counter reset first)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+
+    full = registry.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {full.name}: {n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.resolved_head_dim}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff_expert {cfg.d_ff_expert}, vocab "
+          f"{cfg.vocab_size}, window {cfg.sliding_window}; {cfg.param_count() / 1e9:.2f}B "
+          f"float32 params, {cfg.active_param_count() / 1e9:.2f}B active a token "
+          f"({time.monotonic() - t0:.1f} s to init)")
+    return cfg, params
+
+
+def _moe_profiled(fn) -> tuple[float, dict, list]:
+    """As ``_profiled``, but read from an ``obs.trace_capture`` trace, so the
+    matmuls inside the ``kvcomp/moe_experts`` scope (the MoE layers' three
+    expert products) form a group of their own, apart from the attention's
+    and the other matmuls."""
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.monotonic() - t0)
+    with tempfile.TemporaryDirectory() as d:
+        with obs.trace_capture(d):
+            fn()
+            torch.cuda.synchronize()
+        files = sorted(Path(d).glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace_capture wrote {files}")
+        evs = json.loads(files[0].read_text())["traceEvents"]
+    scopes = [(e.get("pid"), e.get("tid"), e["ts"], e["ts"] + e["dur"]) for e in evs
+              if e.get("cat") == "gpu_user_annotation" and e["name"] == "kvcomp/moe_experts"]
+    groups: dict = {}
+    per_name: dict = {}
+    for k in (e for e in evs if e.get("cat") == "kernel"):
+        g = _kernel_group(k["name"])
+        if g == "matmul (cuBLAS)" and any(
+                p == k.get("pid") and t == k.get("tid") and a <= k["ts"]
+                and k["ts"] + k["dur"] <= b for p, t, a, b in scopes):
+            g = "expert matmuls"
+        for acc in (groups.setdefault(g, [0.0, 0]), per_name.setdefault(k["name"][:90], [0.0, 0])):
+            acc[0] += k["dur"] / 1e3
+            acc[1] += 1
+    if not scopes or "expert matmuls" not in groups:
+        raise AssertionError("no expert matmul ran inside kvcomp/moe_experts")
+    top = sorted(((ms, n, name) for name, (ms, n) in per_name.items()), reverse=True)[:5]
+    return wall, {g: tuple(v) for g, v in groups.items()}, top
+
+
+def _moe_add(report: dict, launches: dict) -> None:
+    acc = report.setdefault("moe_launches", {})
+    for k, v in launches.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def phase_moe(report: dict) -> None:
+    """Phase 16: the MoE family on the card.  (c) the kernels at Mixtral's
+    shapes; (a) Qwen3-30B-A3B at full width, 16 of 48 layers, dense, paged,
+    huffman and dense again, tokens equal; (b) Mixtral-8x22B at full width,
+    2 of 56 layers, past its sliding window, dense and paged, tokens equal,
+    the Fetch on the live wrapped state against its plain version.
+
+    Under MoE a batch's rows share the expert capacity, ranked in row order,
+    so a row's output depends on the rows above it (batched != solo, in the
+    reference as here).  A retired row goes on decoding: in dense mode it
+    attends its old blocks, in paged mode its page table is cleared and it
+    attends its raw buffer alone (the reference's rule).  So paged == dense
+    holds for the live rows only while no retired row sits above a live
+    one.  Chunked admission serves prompts first come, first served, so
+    with equal budgets the requests would retire in row order; here the
+    budgets fall with the row, so the rows retire from the highest down
+    (checked), and the retired rows route beside the live ones for the
+    last steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import pool
+    from repro_torch.kernels import fused_kv_attn, runtime
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import Request, Server, ServerConfig
+
+    t_phase = time.monotonic()
+    print("  (c) kernels at Mixtral-8x22B's shapes (Hkv 8, G 6, D 128, T 64, NB 64)",
+          flush=True)
+    phase_kernels(report, hkv=8, g_=6, key="mixtral_kernels")
+
+    print("  (a) Qwen3-30B-A3B", flush=True)
+    cfg, params = moe_model("qwen3_moe_30b_a3b", QWEN_MOE_LAYERS)
+    L, rows = cfg.n_layers, len(MOE_REQS)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n, _ in MOE_REQS]
+    news = [n for _, n in MOE_REQS]
+    base = dict(max_slots=rows, max_seq=4096, attn_backend="fused", prefill_chunk_tokens=512)
+    specs = M.cache_specs(cfg, 4096)
+    page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim) for s in specs)
+    pages = rows * specs[0].n_blocks
+    hcfg = dataclasses.replace(cfg, cache_layout="huffman")
+    packed_step = (("fused_kv_attn", L), ("pack_encode", L))
+    runs = {}
+    for name, c, scfg, step, kinds in (
+            ("(i) dense", cfg, ServerConfig(**base), packed_step,
+             ("fused_kv_attn", "pack_encode")),
+            (f"(ii) paged, {pages} pages", cfg,
+             ServerConfig(cache_mode="paged", pool_hbm_bytes=pages * page_b, **base),
+             (("fused_kv_attn_paged", L), ("pack_encode", L)),
+             ("fused_kv_attn_paged", "pack_encode")),
+            ("(iii) huffman, dense", hcfg, ServerConfig(**base),
+             (("fused_kv_attn_huffman", L),), ("fused_kv_attn_huffman", "huffman_lut_decode")),
+            ("(iv) dense again", cfg, ServerConfig(**base), packed_step,
+             ("fused_kv_attn", "pack_encode"))):
+        print(f"  {name}", flush=True)
+        r = runs[name] = _serve_run(c, params, prompts, scfg, news)
+        _moe_add(report, r["launches"])
+        if r["per_step"] != {step}:
+            raise AssertionError(f"{name}: decode step launches {r['per_step']}, expected "
+                                 f"{step}")
+        for k in kinds:
+            if r["launches"][k] < 1:
+                raise AssertionError(f"{name}: kernel {k} never launched")
+    first = runs["(i) dense"]
+    for name, r in runs.items():
+        same = sum(int(np.array_equal(x, y)) for x, y in zip(first["tokens"], r["tokens"]))
+        print(f"  {name} vs (i): {same}/{rows} requests with identical greedy tokens")
+        if same != rows:
+            raise AssertionError(f"Qwen3-30B-A3B {name}: tokens differ from (i)")
+    ends = [t[-1] for t in first["token_times"]]
+    order = sorted(range(rows), key=lambda i: ends[i])
+    late = sum(t > ends[order[1]] for i in order[2:] for t in first["token_times"][i])
+    print(f"  requests finish in the order {order} (row = request); {late} tokens of the "
+          f"last two decoded after the first two retired")
+    if not (order == list(range(rows))[::-1] and ends[order[1]] < ends[order[2]]
+            and late > 0):
+        raise AssertionError("Qwen3-30B-A3B: the rows must retire from the highest down, two "
+                             "before the others")
+
+    # Where the time goes: one decode step with the four rows live, and 512
+    # prompt tokens of chunked prefill (8 chunks of 64) on a private state.
+    server = Server(cfg, params, ServerConfig(**base))
+    for p, n in zip(prompts, news):
+        server.submit(Request(prompt=p, max_new_tokens=n))
+    while server.prefilling or server.pending or server.active < rows:
+        server.step()
+    torch.cuda.synchronize()
+    _print_profile("Qwen3-30B-A3B packed dense decode step (4 rows)",
+                   *_moe_profiled(server.step))
+    server.run()
+    del server
+    st = M.init_decode_state(cfg, 1, 4096, device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1024)), device="cuda")
+    pos = [0]
+
+    def prefill512():
+        for _ in range(512 // T):
+            M.prefill_chunk(params, cfg, toks[:, pos[0]:pos[0] + T], pos[0], st)
+            pos[0] += T
+
+    _print_profile("Qwen3-30B-A3B prefill, 512 tokens in 8 chunks (profiled at 512 to 1023)",
+                   *_moe_profiled(prefill512))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  Qwen3-30B-A3B: peak device memory {peak / 2**30:.2f} GiB")
+    report["qwen3_moe"] = dict(tok_s=first["tok_s"], peak_gib=peak / 2**30)
+    del params, st
+    torch.cuda.empty_cache()
+
+    print("  (b) Mixtral-8x22B past its sliding window", flush=True)
+    cfg, params = moe_model("mixtral_8x22b", MIXTRAL_LAYERS)
+    rng = np.random.default_rng(17)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), new)
+            for n, new in MIXTRAL_REQS]
+    specs = M.cache_specs(cfg, MIXTRAL_SEQ)
+    ring = specs[0].n_blocks
+    page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim) for s in specs)
+    base = dict(max_slots=len(reqs), max_seq=MIXTRAL_SEQ, attn_backend="fused",
+                prefill_chunk_tokens=512)
+    out = {}
+    for mode, extra in (("dense", {}), ("paged", {"pool_hbm_bytes": len(reqs) * ring * page_b})):
+        fetch = "fused_kv_attn" + ("_paged" if mode == "paged" else "")
+        server = Server(cfg, params, ServerConfig(cache_mode=mode, **base, **extra))
+        ha, hb = (server.submit(Request(prompt=p, max_new_tokens=n)) for p, n in reqs)
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        t0, checked = time.monotonic(), False
+        while True:
+            if not checked and hb.done and len(ha._toks) == reqs[0][1] - 1:
+                # A's last decode step is next: its ring has wrapped, B's
+                # row idles.  The Fetch on this live state against its
+                # plain version (launches made here are not the run's).
+                saved = dict(runtime.launches)
+                g = torch.Generator(device="cuda").manual_seed(18)
+                for li, c in enumerate(server.state["kv"]):
+                    nf = c.n_flushed.tolist()
+                    if nf[0] <= ring:
+                        raise AssertionError(f"layer {li}: A flushed {nf[0]} blocks, not more "
+                                             f"than the ring's {ring}")
+                    q = torch.randn((len(reqs), cfg.n_heads, cfg.resolved_head_dim),
+                                    generator=g, device="cuda")
+                    args, kw = fetch_args(c.spec, c)
+                    got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
+                    want = fused_kv_attn.plain(q, *args, **kw)
+                    err = float((got - want).abs().max())
+                    if not (err <= FETCH_ATOL and torch.isfinite(got).all()):
+                        raise AssertionError(f"Mixtral {mode} layer {li}: Fetch vs plain on the "
+                                             f"wrapped state, max |err| {err}")
+                    print(f"  {mode} layer {li}: n_flushed {nf} (ring {ring}), buf_len "
+                          f"{c.buf_len.tolist()}; Fetch max|kernel-plain| = {err:.3e} "
+                          f"(tol {FETCH_ATOL})")
+                    errs = report.setdefault("mixtral_fetch_err", {})
+                    errs[fetch] = max(errs.get(fetch, 0.0), err)
+                    split_rule_checks(c.spec, c, q)
+                runtime.launches.update(saved)
+                checked = True
+            if not server.step():
+                break
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(runtime.launches)
+        _moe_add(report, launches)
+        res = [ha.result(), hb.result()]
+        for (p, n), r in zip(reqs, res):
+            if (r.tokens.shape != (n,) or r.tokens.min() < 0
+                    or r.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"Mixtral {mode}: bad output {r.tokens}")
+        print(f"  {mode}: {sum(len(r.tokens) for r in res)} tokens in {wall:.2f} s, ttft "
+              f"{[round(r.ttft_s, 3) for r in res]} s, {server.decode_steps} decode steps; "
+              f"launches {launches}")
+        if not checked:
+            raise AssertionError(f"Mixtral {mode}: B did not retire while A decoded")
+        if launches[fetch] < 1 or launches["pack_encode"] < 1:
+            raise AssertionError(f"Mixtral {mode}: the Fetch or the Store never launched")
+        out[mode] = [r.tokens for r in res]
+        del server
+    same = sum(int(np.array_equal(x, y)) for x, y in zip(out["dense"], out["paged"]))
+    print(f"  Mixtral-8x22B paged vs dense: {same}/{len(reqs)} requests with identical tokens")
+    if same != len(reqs):
+        raise AssertionError("Mixtral-8x22B: paged tokens differ from dense")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  Mixtral-8x22B: peak device memory {peak / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase 16: {time.monotonic() - t_phase:.1f} s")
+
+
 def fetch_cases() -> dict:
     """Phase 10's Fetch inputs, packed and huffman: the dense run's last
     decode-step lengths, the paged run's last lengths on a shuffled arena
@@ -2085,8 +2390,18 @@ def main() -> int:
     phase_observability(report, cfg, params)
     del params
     torch.cuda.empty_cache()
+    print("[16] the MoE family: Qwen3-30B-A3B and Mixtral-8x22B at full width", flush=True)
+    phase_moe(report)
     print("[10] kernel times", flush=True)
     kernels = phase_times(report)
+    mk, mf = report["mixtral_kernels"], report["mixtral_fetch_err"]
+    errs = {"fused_kv_attn": max(mk["fetch_err"], mf["fused_kv_attn"]),
+            "fused_kv_attn_paged": mf["fused_kv_attn_paged"],
+            "fused_kv_attn_huffman": mk["fetch_huffman_err"], "pack_encode": mk["store_err"]}
+    for k in kernels:  # phase 16's runs are main paths too
+        k["launches"] += report["moe_launches"].get(k["name"], 0)
+        if k["name"] in errs:
+            k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

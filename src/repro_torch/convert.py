@@ -18,11 +18,14 @@ from repro_torch.models.config import ModelConfig
 
 def params_from_jax(tree, cfg: ModelConfig, device):
     """Reference tree ``{emb: {embed, unembed}, ln_f, blocks: {ln_attn,
-    attn: {wq, wk, wv, wo}, ln_mlp, mlp: {w_gate, w_up, w_down}}}`` (numpy,
-    blocks stacked on a leading layer axis) -> the port's parameter dict."""
-    if cfg.family != "dense":
+    attn: {wq, wk, wv, wo}, <ffn>}}`` (numpy, blocks stacked on a leading
+    layer axis; ``<ffn>`` is ``ln_mlp, mlp: {w_gate, w_up, w_down}`` for the
+    dense family and ``ln_moe, moe: {router [d, E], w_gate / w_up [E, d, F],
+    w_down [E, F, d]}`` for MoE) -> the port's parameter dict."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
+    ffn = "moe" if cfg.family == "moe" else "mlp"
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)  # a writable copy
@@ -34,7 +37,7 @@ def params_from_jax(tree, cfg: ModelConfig, device):
         "blocks": [{
             "ln_attn": t(blocks["ln_attn"][i]),
             "attn": {k: t(v[i]) for k, v in blocks["attn"].items()},
-            "ln_mlp": t(blocks["ln_mlp"][i]),
-            "mlp": {k: t(v[i]) for k, v in blocks["mlp"].items()},
+            f"ln_{ffn}": t(blocks[f"ln_{ffn}"][i]),
+            ffn: {k: t(v[i]) for k, v in blocks[ffn].items()},
         } for i in range(cfg.n_layers)],
     }

@@ -1,9 +1,12 @@
-"""Model configuration: the dense-family fields plus the ``cache_*`` block.
+"""Model configuration: the decoder families' fields plus the ``cache_*``
+block.
 
 The port's own copy of ``repro.models.config.ModelConfig`` (same field names
-and defaults) restricted to what this slice serves: the dense decoder family.
-The paper's technique (compressed KV cache) is a config block, so a model
-flips between raw / kivi / packed caches without touching model code.
+and defaults) restricted to what the port serves: the dense and MoE decoder
+families (the ssm and hybrid families, and the encoder-only options, belong
+to a later slice).  The paper's technique (compressed KV cache) is a config
+block, so a model flips between raw / kivi / packed / huffman caches without
+touching model code.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "dense" is served by this slice of the port
+    family: str  # "dense" | "moe" (ssm and hybrid are a later slice)
     n_layers: int
     d_model: int
     vocab_size: int
@@ -29,6 +32,12 @@ class ModelConfig:
     d_ff: int = 0
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
     # KV-cache compression (the paper's technique): ``cache_layout`` names a
     # registered repro_torch.core.layouts.CacheLayout; ``cache_overrides``
     # is a tuple of repro_torch.core.policy.LayerOverride.
@@ -64,12 +73,24 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family."""
+        """Analytic parameter count of the dense and MoE families."""
         d, v, dh = self.d_model, self.vocab_size, self.resolved_head_dim
         emb = v * d * (1 if self.tie_embeddings else 2)
         attn = d * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * d
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
-        return emb + self.n_layers * per_layer + d
+        if self.family == "dense":
+            ffn = 3 * d * self.d_ff
+        elif self.family == "moe":
+            ffn = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+        else:
+            raise ValueError(self.family)
+        return emb + self.n_layers * (attn + ffn + 2 * d) + d
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        per_expert = self.n_layers * 3 * self.d_model * self.d_ff_expert
+        return self.param_count() - (self.n_experts - self.top_k) * per_expert
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -82,7 +103,10 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2),
         head_dim=16,
-        d_ff=128,
+        d_ff=128 if cfg.d_ff else 0,
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        d_ff_expert=64 if cfg.d_ff_expert else 0,
         sliding_window=64 if cfg.sliding_window else None,
         cache_block=8,
         name=cfg.name + "-smoke",

@@ -1,9 +1,10 @@
-"""Model assembly for the dense family (the port of ``repro.models.model``,
-serving entry points).
+"""Model assembly for the dense and MoE families (the port of
+``repro.models.model``, serving entry points).
 
 Parameters are nested dicts of tensors: ``emb`` (``embed``, ``unembed``),
 ``ln_f``, and ``blocks`` — one dict per layer (``ln_attn``, ``attn``
-{wq, wk, wv, wo}, ``ln_mlp``, ``mlp`` {w_gate, w_up, w_down}) with the
+{wq, wk, wv, wo}, then the FFN: dense ``ln_mlp``, ``mlp`` {w_gate, w_up,
+w_down}; MoE ``ln_moe``, ``moe`` {router, w_gate, w_up, w_down}) with the
 reference's shapes, so ``repro_torch.convert.params_from_jax`` maps the
 reference's stacked pytree onto them one layer at a time.
 
@@ -22,15 +23,15 @@ import torch
 from repro_torch.core import cache as kvcache
 from repro_torch.core import pool
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} belongs to a later slice of the port "
-            "(ROADMAP.md item 11); this slice serves the dense family")
+            "(ROADMAP.md §1 item 6); the port serves the dense and moe families")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.float32):
@@ -44,6 +45,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.floa
                                            cfg.tie_embeddings, **kw),
               "ln_f": torch.ones((cfg.d_model,), **kw), "blocks": []}
     for _ in range(cfg.n_layers):
+        if cfg.family == "moe":
+            params["blocks"].append(moe.init_moe_block(gen, cfg, **kw))
+            continue
         params["blocks"].append({
             "ln_attn": torch.ones((cfg.d_model,), **kw),
             "attn": attention.init_attention(gen, cfg, **kw),
@@ -112,17 +116,14 @@ def assign_cache_pages(state, rows: torch.Tensor, slots: torch.Tensor, pages: to
 
 
 def clear_cache_row(state, row: int):
-    """Empty row ``row`` of every layer's cache (a retired or preempted
-    slot): nothing of the old request stays attendable, and the Fetch
-    kernel's loop over the row's live blocks ends at once while the vacated
-    slot idles.  In paged mode the page-table row is unassigned too, so the
-    slot's idle decode can never write into pages re-issued to another
-    request."""
+    """Unassign row ``row``'s pages in every layer's page table (a retired,
+    cancelled or preempted slot of a paged server): the slot's idle decode
+    can never write into pages re-issued to another request, and its reads
+    skip the unassigned entries.  Lengths stay as they were, as in the
+    reference: under MoE an idle row's hidden state takes part in the
+    batch's expert capacity, so its inputs must be the reference's."""
     for c in state["kv"]:
-        c.n_flushed[row] = 0
-        c.buf_len[row] = 0
-        if c.spec.paged:
-            pool.clear_row(c, row)
+        pool.clear_row(c, row)
     return state
 
 
@@ -165,7 +166,12 @@ def install_chunk_row(state, chunked, row: int, pages: torch.Tensor):
     return state
 
 
-def _mlp_block(block_p, cfg, x):
+def _ffn_block(block_p, cfg, x):
+    """The block's pre-norm FFN with its residual: the MoE layer (its aux
+    loss dropped, as serving does) or the dense SwiGLU."""
+    if cfg.family == "moe":
+        h = layers.rms_norm(x, block_p["ln_moe"], cfg.norm_eps)
+        return x + moe.moe_apply(block_p["moe"], cfg, h)[0]
     h = layers.rms_norm(x, block_p["ln_mlp"], cfg.norm_eps)
     return x + layers.mlp(block_p["mlp"], h)
 
@@ -179,7 +185,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, position, state)
     x = layers.embed_tokens(params["emb"], tokens[:, None])
     for block_p, cache in zip(params["blocks"], state["kv"]):
         x, _ = attention.attn_block_decode(block_p, cfg, x, position, cache)
-        x = _mlp_block(block_p, cfg, x)
+        x = _ffn_block(block_p, cfg, x)
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return layers.unembed(params["emb"], x[:, 0]), state
 
@@ -197,6 +203,6 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, pos0, state):
     x = layers.embed_tokens(params["emb"], tokens)
     for block_p, cache in zip(params["blocks"], state["kv"]):
         x, _ = attention.attn_block_chunk(block_p, cfg, x, positions, cache)
-        x = _mlp_block(block_p, cfg, x)
+        x = _ffn_block(block_p, cfg, x)
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return layers.unembed(params["emb"], x[:, -1]), state

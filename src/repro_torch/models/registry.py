@@ -7,7 +7,21 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-ARCHS = ["yi_6b"]
+# The reference's decoder archs, in its order; hubert_xlarge (encoder-only),
+# mamba2_1_3b (ssm) and zamba2_7b (hybrid) come with the full-length prefill.
+ARCHS = [
+    "mixtral_8x22b",
+    "qwen3_moe_30b_a3b",
+    "yi_6b",
+    "qwen3_1_7b",
+    "command_r_35b",
+    "stablelm_12b",
+    "chameleon_34b",
+    # the paper's own evaluation models
+    "llama2_7b",
+    "llama2_13b",
+    "ministral_8b",
+]
 
 
 def canonical(name: str) -> str:

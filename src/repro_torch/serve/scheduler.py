@@ -599,8 +599,6 @@ class Server:
                 self._slots[row] = None
                 if self.paged:
                     self._release_row(row)
-                else:
-                    M.clear_cache_row(self.state, row)
                 return
 
     def _cancel(self, handle: Handle) -> None:
@@ -949,14 +947,14 @@ class Server:
         self._pt_host[row] = -1
 
     def _release_row(self, row: int) -> None:
-        """Release the row's pages and clear its device row (page-table row
-        and lengths) with the host mirrors of its position, so the slot's
-        continuing idle decode can never write into pages re-issued to
-        another request."""
+        """Release the row's pages and unassign its device page-table row, so
+        the slot's continuing idle decode can never write into pages
+        re-issued to another request.  The row's token, position and cache
+        lengths stay, as in the reference: the idle row keeps decoding on
+        them, and under MoE its routing shares the batch's expert capacity
+        with the live rows."""
         self._release_host_pages(row)
         M.clear_cache_row(self.state, row)
-        self._cur[row] = self.scfg.pad_id
-        self._pos[row] = 0
 
     def _park(self, row: int, tokens, flushed: int) -> None:
         """Sharing on: put the row's first ``flushed`` blocks into the index
@@ -1162,8 +1160,6 @@ class Server:
                 self._slots[row] = None  # retire; the slot is reused next step
                 if self.paged:
                     self._release_row(row)
-                else:
-                    M.clear_cache_row(self.state, row)
         return (bool(self._queue) or bool(self._prefill_tasks)
                 or any(s is not None for s in self._slots))
 

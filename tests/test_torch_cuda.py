@@ -32,9 +32,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _filled_cache(layout, nb_valid, buf_len, device, seed=0):
+def _filled_cache(layout, nb_valid, buf_len, device, seed=0, heads=4):
     spec = TC.CacheSpec(layout=layout, block_size=64, max_seq=64 * 16)
-    B, H, D, NB = len(nb_valid), 4, 128, spec.n_blocks
+    B, H, D, NB = len(nb_valid), heads, 128, spec.n_blocks
     c = TC.init_layer_cache(spec, B, H, D, device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     blocks = [torch.randn((B, H, NB, 64, D), generator=g, device=device).to(torch.bfloat16)
@@ -66,6 +66,42 @@ def test_store_kernel_bit_exact_on_card(layout, cuda):
     spec, c = _filled_cache(layout, [4, 4, 4], [0, 0, 0], cuda)
     kb = torch.randn((3, 4, 1, 64, 128), device=cuda).to(torch.bfloat16)
     vb = torch.randn((3, 4, 1, 64, 128), device=cuda).to(torch.bfloat16)
+    slots = torch.tensor([[3], [spec.n_blocks], [0]], dtype=torch.int32, device=cuda)
+    names = ("k_store", "k_min", "k_step", "v_store", "v_min", "v_step")
+    a = [getattr(c, f).clone() for f in names]
+    b = [getattr(c, f).clone() for f in names]
+    kw = dict(bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
+              rel_scale_v=spec.rel_scale_v, kivi=spec.impl.kivi_step)
+    pack_encode.pack_encode(kb, vb, slots, *a, **kw)
+    pack_encode.pack_encode_plain(kb, vb, slots, *b, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                           y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+
+
+# Mixtral-8x22B's attention: 48 query heads over 8 KV heads (G = 6), head_dim 128.
+MIXTRAL_HKV, MIXTRAL_G = 8, 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "kivi", "raw", "huffman"])
+def test_fetch_kernel_matches_plain_at_mixtral_shape(layout, cuda):
+    spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda, heads=MIXTRAL_HKV)
+    q = torch.randn((4, MIXTRAL_HKV * MIXTRAL_G, 128), device=cuda)
+    args = _args(c, torch.clamp(c.n_flushed, max=spec.n_blocks))
+    kw = dict(tile=spec.impl.tile_decode(spec, 128), block_size=64)
+    got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
+    want = fused_kv_attn.plain(q, *args, **kw)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, fused_kv_attn.fused_cache_attention(q, *args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "kivi"])
+def test_store_kernel_bit_exact_at_mixtral_shape(layout, cuda):
+    spec, c = _filled_cache(layout, [4, 4, 4], [0, 0, 0], cuda, heads=MIXTRAL_HKV)
+    kb = torch.randn((3, MIXTRAL_HKV, 1, 64, 128), device=cuda).to(torch.bfloat16)
+    vb = torch.randn((3, MIXTRAL_HKV, 1, 64, 128), device=cuda).to(torch.bfloat16)
     slots = torch.tensor([[3], [spec.n_blocks], [0]], dtype=torch.int32, device=cuda)
     names = ("k_store", "k_min", "k_step", "v_store", "v_min", "v_step")
     a = [getattr(c, f).clone() for f in names]

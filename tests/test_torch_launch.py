@@ -21,9 +21,10 @@ BASE = ["--arch", "yi_6b", "--requests", "3", "--max-slots", "2", "--prompt-len"
         "--new-tokens", "5", "--max-seq", "64", "--device", "cpu"]
 
 
-def _expected_tokens(layout, prefix_cache, serve_kw, n=3, prompt_len=32, new_tokens=5):
+def _expected_tokens(layout, prefix_cache, serve_kw, n=3, prompt_len=32, new_tokens=5,
+                     arch="yi_6b"):
     """The reference launcher's workload through ``api.serve``."""
-    cfg = dataclasses.replace(registry.get_smoke_config("yi_6b"), cache_layout=layout)
+    cfg = dataclasses.replace(registry.get_smoke_config(arch), cache_layout=layout)
     params = M.init_params(cfg, seed=0, device="cpu")
     server = api.serve(cfg, params, max_slots=2, max_seq=64, prefix_cache=prefix_cache,
                        device="cpu", **serve_kw)
@@ -80,6 +81,17 @@ def test_cli_serves_and_exports(name, tmp_path, capsys):
         assert not files[0].exists()
     for f in files[1:]:
         assert f.exists() and f.with_suffix(".prom").read_text().startswith("# TYPE kvcomp_")
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "mixtral_8x22b"])
+def test_cli_serves_the_moe_archs(arch, capsys):
+    """``--arch`` of the MoE family serves at smoke width, with the tokens
+    ``api.serve`` gives on the same workload."""
+    argv = [a if a != "yi_6b" else arch for a in BASE]
+    results = launch.main(argv)
+    assert "serve[dense]" in capsys.readouterr().out
+    assert [r.tokens.tolist() for r in results] == _expected_tokens(
+        "packed", "off", {"cache_mode": "dense"}, arch=arch)
 
 
 @pytest.mark.parametrize("argv,what", [
