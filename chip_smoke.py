@@ -5,7 +5,7 @@
     python3 chip_smoke.py --split-sweep   # phases 1, 2, then the Fetch at S = 1, 2, 4
     python3 chip_smoke.py --walk-parent DIR   # phases 1, 2, then DIR's walk kernels vs these
 
-Phases, in the order they run (11 after 4, 12 after 9, 13 to 16 after
+Phases, in the order they run (11 after 4, 12 after 9, 13 to 17 after
 12, times last); any failure exits non-zero before the result lines:
 
 1. Device: needs CUDA; prints the card's name and power limit.
@@ -140,6 +140,36 @@ Phases, in the order they run (11 after 4, 12 after 9, 13 to 16 after
    each row alone == in the batch.  Phase 16's launches join the JSON
    line's counts.  No batched == solo here: the expert capacity is shared
    by a batch's rows, in the reference as here.
+17. The ssm and hybrid families at full width and depth, once phase 16's
+   models are freed (the peak device memory of each printed, every figure
+   beside the card's name and power limit): (a) phase 3's checks at
+   Zamba2-7B's attention shapes (Hkv 32, G 1, D 112), dense and paged (the
+   same caches re-housed in a shuffled arena, with a hole): the Fetch
+   within FETCH_ATOL of its plain version for packed, kivi, raw and
+   huffman, rows alone == in the batch, two launches bit-identical,
+   huffman bit-identical to packed, paged without holes bit-identical to
+   dense; the Store bit-exact at D 112, also at a full-length prefill's
+   call (B 1, 15 blocks) and the lockstep engine's (B 4, 16 blocks); (b)
+   Zamba2-7B (81 blocks: 13 periods of 5 Mamba2 blocks and the one shared
+   attention+MLP block, then 3 Mamba2 blocks; 13 KV caches; random float32
+   weights, 22.9 GB) on phase 5's four prompts, 32 new tokens, max_slots 4,
+   full-length admission: (i) dense, (ii) each request alone through a
+   server of the same shape, (iii) paged in an ample pool, (iv) paged in a
+   pool of ZAMBA_TIGHT_PAGES pages that preempts (the victim replays
+   through the full-length prefill), (v) huffman, dense; the greedy tokens
+   of all five must be equal; every pure decode step must launch the Fetch
+   (dense, paged or huffman) and, packed, the Store 13 times and nothing
+   else, and every admission's prefill the Store 13 times (packed) or no
+   kernel (huffman, whose Store is plain PyTorch); the lockstep engine
+   (bucket 1024) runs its one batched prefill (13 Store launches) and
+   lockstep decode; one decode step with four rows live and one
+   1000-token full-length prefill are profiled, with the Mamba2 blocks'
+   matmuls, their other kernels and ``ssd_scan`` as groups of their own,
+   and the full-length attention is timed beside
+   ``scaled_dot_product_attention`` on the same float32 inputs; (c)
+   Mamba2-1.3B (48 layers, 5.4 GB): the same prompts batched == solo, no
+   kernel launched (no KV cache), and paged mode refused with the
+   reference's error.  Phase 17's launches join the JSON line's counts.
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
@@ -214,6 +244,9 @@ QWEN_MOE_LAYERS = 16   # of 48: 2.49 GB of float32 weights a layer
 MIXTRAL_LAYERS = 2     # of 56: 10.0 GB a layer
 MIXTRAL_SEQ = 8192
 MIXTRAL_REQS = ((4600, 64), (600, 16))  # (prompt tokens, new tokens): A, B
+# The MoE layers' three expert products, apart from the attention's and the
+# other matmuls.
+MOE_SCOPES = (("kvcomp/moe_experts", "expert matmuls", True),)
 
 
 def card_line() -> str:
@@ -250,28 +283,29 @@ def bf16_bits(t):
     return t.view(torch.int16)
 
 
-def make_cache(layout: str, nb_valid, buf_len, seed: int, hkv: int = HKV, g_: int = G):
-    """A layer cache of ``hkv`` KV heads (Yi-6B's 4 by default) with random
-    contents in every slot, written through the Store kernel (packed
-    layouts) and given per-row lengths, and a q of ``g_`` query heads a KV
-    head."""
+def make_cache(layout: str, nb_valid, buf_len, seed: int, hkv: int = HKV, g_: int = G,
+               d_: int = D):
+    """A layer cache of ``hkv`` KV heads and head_dim ``d_`` (Yi-6B's 4 and
+    128 by default) with random contents in every slot, written through the
+    Store kernel (packed layouts) and given per-row lengths, and a q of
+    ``g_`` query heads a KV head."""
     import torch
     from repro_torch.core import cache as C
 
     b = len(nb_valid)
     spec = C.CacheSpec(layout=layout, block_size=T, max_seq=NB * T)
-    c = C.init_layer_cache(spec, b, hkv, D, device="cuda")
+    c = C.init_layer_cache(spec, b, hkv, d_, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    kb = torch.randn((b, hkv, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
-    vb = torch.randn((b, hkv, NB, T, D), generator=g, device="cuda").to(torch.bfloat16)
+    kb = torch.randn((b, hkv, NB, T, d_), generator=g, device="cuda").to(torch.bfloat16)
+    vb = torch.randn((b, hkv, NB, T, d_), generator=g, device="cuda").to(torch.bfloat16)
     slots = torch.arange(NB, device="cuda", dtype=torch.int32)[None].expand(b, NB)
     spec.impl.write_blocks(spec, c, slots, kb, vb)
     c.k_buf.copy_(torch.randn(c.k_buf.shape, generator=g, device="cuda"))
     c.v_buf.copy_(torch.randn(c.v_buf.shape, generator=g, device="cuda"))
     c.n_flushed.copy_(torch.as_tensor(nb_valid, dtype=torch.int32))
     c.buf_len.copy_(torch.as_tensor(buf_len, dtype=torch.int32))
-    q = torch.randn((b, hkv * g_, D), generator=g, device="cuda")
+    q = torch.randn((b, hkv * g_, d_), generator=g, device="cuda")
     return spec, c, q
 
 
@@ -364,7 +398,7 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, 
 
 
 def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None, hkv: int = HKV,
-                          g_: int = G) -> None:
+                          g_: int = G, d_: int = D) -> None:
     """The same random blocks stored packed and huffman hold the same codes
     and scales, so the Fetch kernel's outputs must be bit-identical (dense,
     or paged on the same page map when ``holes`` is given)."""
@@ -373,7 +407,7 @@ def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None, hkv: int = H
 
     out = {}
     for layout in ("packed", "huffman"):
-        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=seed, hkv=hkv, g_=g_)
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=seed, hkv=hkv, g_=g_, d_=d_)
         if holes is not None:
             c = make_paged(c, nb_valid, seed=seed, holes=holes)
         args, kw = fetch_args(spec, c)
@@ -414,10 +448,13 @@ def split_rule_checks(spec, c, q) -> None:
           f"{q.shape[0]}/{q.shape[0]} rows alone == in the batch")
 
 
-def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = None) -> None:
-    """Phase 3 (and 16(c) at Mixtral's ``hkv``, ``g_``): each kernel against
-    its plain version on the card.  The errors go into ``report`` (under
-    ``report[key]`` when given)."""
+def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = None,
+                  d_: int = D, paged: bool = False) -> None:
+    """Phase 3 (and 16(c) at Mixtral's ``hkv``, ``g_``; 17(a) at Zamba2's
+    ``hkv``, ``g_``, ``d_``): each kernel against its plain version on the
+    card; ``paged`` adds the paged Fetch on the same caches re-housed in a
+    shuffled arena.  The errors go into ``report`` (under ``report[key]``
+    when given)."""
     import torch
     from repro_torch.kernels import fused_kv_attn, pack_encode
 
@@ -425,7 +462,7 @@ def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = N
     nb_valid, buf_len = [64, 37, 1, 0], [0, 63, 17, 5]
     fetch_err = 0.0
     for i, layout in enumerate(("packed", "kivi", "raw", "huffman")):
-        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=i, hkv=hkv, g_=g_)
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=i, hkv=hkv, g_=g_, d_=d_)
         args, kw = fetch_args(spec, c)
         got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
         want = fused_kv_attn.plain(q, *args, **kw)
@@ -439,16 +476,41 @@ def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = N
         else:
             fetch_err = max(fetch_err, err)
         split_rule_checks(spec, c, q)
-    same_blocks_identical(nb_valid, buf_len, seed=9, hkv=hkv, g_=g_)
+        if paged:
+            pc = make_paged(c, nb_valid, seed=i, holes={(1, 3)})
+            pargs, _ = fetch_args(spec, pc)
+            got = fused_kv_attn.fused_cache_attention(q, *pargs, **kw)
+            want = fused_kv_attn.plain(q, *pargs, **kw)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            if not (e <= FETCH_ATOL and torch.isfinite(got).all()):
+                raise AssertionError(f"paged Fetch kernel vs plain ({layout}): max |err| {e}")
+            print(f"  paged fetch {layout:7s} max|kernel-plain| = {e:.3e} (tol {FETCH_ATOL})")
+            name = "fetch_huffman_paged_err" if layout == "huffman" else "fetch_paged_err"
+            out[name] = max(out.get(name, 0.0), e)
+            split_rule_checks(spec, pc, q)
+            # no holes: the paged kernel must give the dense kernel's bits
+            full = make_paged(c, nb_valid, seed=i)
+            if not torch.equal(fused_kv_attn.fused_cache_attention(q, *fetch_args(spec, full)[0],
+                                                                   **kw),
+                               fused_kv_attn.fused_cache_attention(q, *args, **kw)):
+                raise AssertionError(f"paged Fetch on a shuffled arena differs from dense on "
+                                     f"the same blocks ({layout})")
+            print(f"  paged fetch {layout:7s} on a shuffled arena bit-identical to dense on "
+                  f"the same blocks")
+    same_blocks_identical(nb_valid, buf_len, seed=9, hkv=hkv, g_=g_, d_=d_)
+    if paged:
+        same_blocks_identical(nb_valid, buf_len, seed=19, holes={(1, 3)}, hkv=hkv, g_=g_,
+                              d_=d_)
 
     store_err = 0.0
     for layout, dt, n in (("packed", torch.bfloat16, 1), ("kivi", torch.bfloat16, 1),
                           ("packed", torch.float32, 3)):
-        spec, c, _ = make_cache(layout, nb_valid, buf_len, seed=7, hkv=hkv, g_=g_)
+        spec, c, _ = make_cache(layout, nb_valid, buf_len, seed=7, hkv=hkv, g_=g_, d_=d_)
         g = torch.Generator(device="cuda")
         g.manual_seed(11)
-        kb = torch.randn((B, hkv, n, T, D), generator=g, device="cuda").to(dt)
-        vb = torch.randn((B, hkv, n, T, D), generator=g, device="cuda").to(dt)
+        kb = torch.randn((B, hkv, n, T, d_), generator=g, device="cuda").to(dt)
+        vb = torch.randn((B, hkv, n, T, d_), generator=g, device="cuda").to(dt)
         slots = torch.tensor([[5 + j for j in range(n)], [NB] * n,
                               [NB - 1 - j for j in range(n)], [j for j in range(n)]],
                              dtype=torch.int32, device="cuda")  # row 1 drops
@@ -1028,7 +1090,8 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens, profile: bool = False,
     ``scfg``), ``new_tokens`` each (or one budget a prompt), stepping by
     hand: the launch counts of every pure decode step (the kernels that
     launched, and how often), the peak number of live rows, and (``profile``) one decode step with every row live and, after
-    the run, one prefill chunk.  ``stagger`` submits the first prompt alone
+    the run, one prefill chunk.  A step that admitted a request (a chunk,
+    or a full-length prefill) is not a pure decode step.  ``stagger`` submits the first prompt alone
     and the others once it decodes; ``after(server)`` runs on the drained
     server and its dict joins the result."""
     import torch
@@ -1049,6 +1112,7 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens, profile: bool = False,
             handles += [server.submit(Request(prompt=p, max_new_tokens=n)) for p, n in late]
             late = []
         st0, d0, l0 = server.stats(), server.decode_steps, dict(runtime.launches)
+        a0 = server._seq  # admissions so far (chunked or full-length)
         if (profile and "profile" not in out and server.active == rows
                 and not server.prefilling and not server.pending):
             if server.paged:
@@ -1068,7 +1132,7 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens, profile: bool = False,
         more = server.step()
         wall += time.monotonic() - t0
         st1 = server.stats()
-        if (server.decode_steps == d0 + 1
+        if (server.decode_steps == d0 + 1 and server._seq == a0
                 and st1["prefill"]["chunks"] == st0["prefill"]["chunks"]):
             per_step.add(tuple(sorted((k, v - l0[k]) for k, v in runtime.launches.items()
                                       if v - l0[k])))
@@ -1705,11 +1769,12 @@ def moe_model(arch: str, n_layers: int):
     return cfg, params
 
 
-def _moe_profiled(fn) -> tuple[float, dict, list]:
+def _scope_profiled(fn, scopes) -> tuple[float, dict, list]:
     """As ``_profiled``, but read from an ``obs.trace_capture`` trace, so the
-    matmuls inside the ``kvcomp/moe_experts`` scope (the MoE layers' three
-    expert products) form a group of their own, apart from the attention's
-    and the other matmuls."""
+    kernels inside named ``kvcomp/*`` scopes form groups of their own.
+    ``scopes``: (scope, group, matmuls only) triples, the first that holds
+    a kernel naming its group (so list an inner scope before an outer
+    one); each group must receive a kernel."""
     import tempfile
 
     import torch
@@ -1727,27 +1792,31 @@ def _moe_profiled(fn) -> tuple[float, dict, list]:
         if len(files) != 1:
             raise AssertionError(f"trace_capture wrote {files}")
         evs = json.loads(files[0].read_text())["traceEvents"]
-    scopes = [(e.get("pid"), e.get("tid"), e["ts"], e["ts"] + e["dur"]) for e in evs
-              if e.get("cat") == "gpu_user_annotation" and e["name"] == "kvcomp/moe_experts"]
+    spans = {scope: [(e.get("pid"), e.get("tid"), e["ts"], e["ts"] + e["dur"]) for e in evs
+                     if e.get("cat") == "gpu_user_annotation" and e["name"] == scope]
+             for scope, _, _ in scopes}
     groups: dict = {}
     per_name: dict = {}
     for k in (e for e in evs if e.get("cat") == "kernel"):
         g = _kernel_group(k["name"])
-        if g == "matmul (cuBLAS)" and any(
-                p == k.get("pid") and t == k.get("tid") and a <= k["ts"]
-                and k["ts"] + k["dur"] <= b for p, t, a, b in scopes):
-            g = "expert matmuls"
+        for scope, name, matmuls in scopes:
+            if (not matmuls or g == "matmul (cuBLAS)") and any(
+                    p == k.get("pid") and t == k.get("tid") and a <= k["ts"]
+                    and k["ts"] + k["dur"] <= b for p, t, a, b in spans[scope]):
+                g = name
+                break
         for acc in (groups.setdefault(g, [0.0, 0]), per_name.setdefault(k["name"][:90], [0.0, 0])):
             acc[0] += k["dur"] / 1e3
             acc[1] += 1
-    if not scopes or "expert matmuls" not in groups:
-        raise AssertionError("no expert matmul ran inside kvcomp/moe_experts")
+    for scope, name, _ in scopes:
+        if name not in groups:
+            raise AssertionError(f"no kernel ran inside {scope}")
     top = sorted(((ms, n, name) for name, (ms, n) in per_name.items()), reverse=True)[:5]
     return wall, {g: tuple(v) for g, v in groups.items()}, top
 
 
-def _moe_add(report: dict, launches: dict) -> None:
-    acc = report.setdefault("moe_launches", {})
+def _add_launches(report: dict, key: str, launches: dict) -> None:
+    acc = report.setdefault(key, {})
     for k, v in launches.items():
         acc[k] = acc.get(k, 0) + v
 
@@ -1809,7 +1878,7 @@ def phase_moe(report: dict) -> None:
              ("fused_kv_attn", "pack_encode"))):
         print(f"  {name}", flush=True)
         r = runs[name] = _serve_run(c, params, prompts, scfg, news)
-        _moe_add(report, r["launches"])
+        _add_launches(report, "moe_launches", r["launches"])
         if r["per_step"] != {step}:
             raise AssertionError(f"{name}: decode step launches {r['per_step']}, expected "
                                  f"{step}")
@@ -1841,7 +1910,7 @@ def phase_moe(report: dict) -> None:
         server.step()
     torch.cuda.synchronize()
     _print_profile("Qwen3-30B-A3B packed dense decode step (4 rows)",
-                   *_moe_profiled(server.step))
+                   *_scope_profiled(server.step, MOE_SCOPES))
     server.run()
     del server
     st = M.init_decode_state(cfg, 1, 4096, device="cuda")
@@ -1854,7 +1923,7 @@ def phase_moe(report: dict) -> None:
             pos[0] += T
 
     _print_profile("Qwen3-30B-A3B prefill, 512 tokens in 8 chunks (profiled at 512 to 1023)",
-                   *_moe_profiled(prefill512))
+                   *_scope_profiled(prefill512, MOE_SCOPES))
     peak = torch.cuda.max_memory_allocated()
     print(f"  Qwen3-30B-A3B: peak device memory {peak / 2**30:.2f} GiB")
     report["qwen3_moe"] = dict(tok_s=first["tok_s"], peak_gib=peak / 2**30)
@@ -1913,7 +1982,7 @@ def phase_moe(report: dict) -> None:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = dict(runtime.launches)
-        _moe_add(report, launches)
+        _add_launches(report, "moe_launches", launches)
         res = [ha.result(), hb.result()]
         for (p, n), r in zip(reqs, res):
             if (r.tokens.shape != (n,) or r.tokens.min() < 0
@@ -1937,6 +2006,263 @@ def phase_moe(report: dict) -> None:
     del params
     torch.cuda.empty_cache()
     print(f"  phase 16: {time.monotonic() - t_phase:.1f} s")
+
+
+# Phase 17, the ssm and hybrid families at full width and depth.
+ZAMBA_HKV, ZAMBA_G, ZAMBA_D = 32, 1, 112  # Zamba2-7B's shared attention block
+ZAMBA_TIGHT_PAGES = 24  # preempts once on phase 5's lengths (CPU run of the same lengths)
+ZAMBA_BUCKET = 1024     # LockstepEngine: phase 5's four prompts in one bucket
+
+
+def full_model(arch: str):
+    """A registered config at full width and depth with random float32
+    weights from seed 0 (the peak memory counter reset first)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+
+    cfg = registry.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    attn = (f", one shared attention block of {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.resolved_head_dim} a period of {cfg.hybrid_period} blocks, d_ff {cfg.d_ff}"
+            if cfg.n_heads else "")
+    print(f"  {cfg.name}: {cfg.n_layers} blocks, {M.n_cache_layers(cfg)} KV caches, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}{attn}, vocab {cfg.vocab_size}; "
+          f"{cfg.param_count() / 1e9:.2f}B float32 params ({time.monotonic() - t0:.1f} s to "
+          f"init)")
+    return cfg, params
+
+
+@contextlib.contextmanager
+def prefill_launches():
+    """The kernel launches of every full-length ``model.prefill`` call made
+    inside the block (the scheduler's admissions and the lockstep
+    engine's): a list with one {kernel: launches} dict a call."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import model as M
+
+    calls, inner = [], M.prefill
+
+    def counted(*args, **kw):
+        l0 = dict(runtime.launches)
+        out = inner(*args, **kw)
+        calls.append({k: v - l0[k] for k, v in runtime.launches.items() if v - l0[k]})
+        return out
+
+    M.prefill = counted
+    try:
+        yield calls
+    finally:
+        M.prefill = inner
+
+
+def phase_hybrid(report: dict) -> None:
+    """Phase 17: the ssm and hybrid families on the card, after phase 16 has
+    freed the MoE models.  (a) the Fetch and the Store at Zamba2-7B's
+    shapes; (b) Zamba2-7B at full width and depth, served dense, solo,
+    paged (an ample and a tight pool) and huffman, tokens equal, the launch
+    counts of decode steps and admissions, and a decode step and a
+    1000-token full-length prefill profiled; (c) Mamba2-1.3B at full width
+    and depth, batched == solo, no kernel launched, paged mode refused."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import cache as C
+    from repro_torch.core import pool
+    from repro_torch.kernels import pack_encode, runtime
+    from repro_torch.models import attention
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import EngineConfig, LockstepEngine
+    from repro_torch.serve.scheduler import Request, Server, ServerConfig
+
+    t_phase = time.monotonic()
+    card = card_line()
+    print(f"  (a) kernels at Zamba2-7B's shapes (Hkv {ZAMBA_HKV}, G {ZAMBA_G}, D {ZAMBA_D}, "
+          f"T {T}, NB {NB}), dense and paged", flush=True)
+    phase_kernels(report, hkv=ZAMBA_HKV, g_=ZAMBA_G, d_=ZAMBA_D, key="zamba_kernels",
+                  paged=True)
+    out = report["zamba_kernels"]
+    spec = C.CacheSpec(layout="packed", block_size=T, max_seq=NB * T)
+    skw = dict(bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
+               rel_scale_v=spec.rel_scale_v, kivi=False)
+    for what, b, n in (("a full-length prefill's call", 1, 1000 // T),
+                       ("LockstepEngine's batched call", B, ZAMBA_BUCKET // T)):
+        c = C.init_layer_cache(spec, b, ZAMBA_HKV, ZAMBA_D, device="cuda")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(20 + b)
+        # float32 blocks, as the prefill's projections give them
+        kb = torch.randn((b, ZAMBA_HKV, n, T, ZAMBA_D), generator=g, device="cuda")
+        vb = torch.randn((b, ZAMBA_HKV, n, T, ZAMBA_D), generator=g, device="cuda")
+        slots = torch.arange(n, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+        got = [getattr(c, f).clone() for f in pool.STORE_FIELDS]
+        want = [getattr(c, f).clone() for f in pool.STORE_FIELDS]
+        pack_encode.pack_encode(kb, vb, slots, *got, **skw)
+        pack_encode.pack_encode_plain(kb, vb, slots, *want, **skw)
+        torch.cuda.synchronize()
+        for f, x, y in zip(pool.STORE_FIELDS, got, want):
+            if x.dtype != torch.int32:
+                x, y = bf16_bits(x), bf16_bits(y)
+            if not torch.equal(x, y):
+                raise AssertionError(f"Store kernel vs plain ({what}, D {ZAMBA_D}): {f} "
+                                     f"differs in {int((x != y).sum())} entries")
+        ms = timed(lambda: pack_encode.pack_encode(kb, vb, slots, *got, **skw), iters=10)
+        plain = timed(lambda: pack_encode.pack_encode_plain(kb, vb, slots, *want, **skw),
+                      iters=5)
+        print(f"  store, {what} (B={b}, {n} blocks, D {ZAMBA_D}, float32 in): words and "
+              f"bf16 scales bit-exact; kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
+        out.setdefault("store_multi_ms", {})[what] = (ms, plain)
+
+    print("  (b) Zamba2-7B at full width and depth", flush=True)
+    cfg, params = full_model("zamba2_7b")
+    L = M.n_cache_layers(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    base = dict(max_slots=B, max_seq=4096, attn_backend="fused")
+    specs = M.cache_specs(cfg, 4096)
+    page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim) for s in specs)
+    ample = B * specs[0].n_blocks
+    hcfg = dataclasses.replace(cfg, cache_layout="huffman")
+    packed_step = {(("fused_kv_attn", L), ("pack_encode", L))}
+    runs = {}
+    for name, c, scfg, step in (
+            ("(i) dense", cfg, ServerConfig(**base), packed_step),
+            (f"(iii) paged, {ample} pages", cfg,
+             ServerConfig(cache_mode="paged", pool_hbm_bytes=ample * page_b, **base),
+             {(("fused_kv_attn_paged", L), ("pack_encode", L))}),
+            (f"(iv) paged, {ZAMBA_TIGHT_PAGES} pages (preempts)", cfg,
+             ServerConfig(cache_mode="paged", pool_hbm_bytes=ZAMBA_TIGHT_PAGES * page_b,
+                          **base),
+             {(("fused_kv_attn_paged", L), ("pack_encode", L))}),
+            ("(v) huffman, dense", hcfg, ServerConfig(**base),
+             {(("fused_kv_attn_huffman", L),)})):
+        print(f"  {name}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        with prefill_launches() as calls:
+            r = runs[name] = _serve_run(c, params, prompts, scfg, NEW_TOKENS)
+        print(f"  peak device memory of the run {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB [{card}]")
+        _add_launches(report, "hybrid_launches", r["launches"])
+        if r["per_step"] != step:
+            raise AssertionError(f"Zamba2 {name}: decode step launches {r['per_step']}, "
+                                 f"expected {step}")
+        # the huffman Store is plain PyTorch: its prefill launches no kernel
+        want_call = {} if c.cache_layout == "huffman" else {"pack_encode": L}
+        n_adm = len(prompts) + r["stats"]["preemptions"]
+        print(f"  {len(calls)} full-length prefills (admissions), launches each: "
+              f"{sorted({tuple(sorted(x.items())) for x in calls})}")
+        if len(calls) != n_adm or any(x != want_call for x in calls):
+            raise AssertionError(f"Zamba2 {name}: {len(calls)} prefills for {n_adm} "
+                                 f"admissions, launches {calls}, expected {want_call} each")
+        if "preempts" in name and r["stats"]["preemptions"] < 1:
+            raise AssertionError(f"Zamba2 {name}: the tight pool did not preempt")
+    first = runs["(i) dense"]
+    solo = []
+    for p in prompts:
+        server = Server(cfg, params, ServerConfig(**base))
+        solo.append(server.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS)).result().tokens)
+        del server
+    runs["(ii) solo"] = {"tokens": solo}
+    for name, r in runs.items():
+        same = sum(int(np.array_equal(x, y)) for x, y in zip(first["tokens"], r["tokens"]))
+        print(f"  {name} vs (i): {same}/{len(prompts)} requests with identical greedy tokens")
+        if same / len(prompts) < MIN_AGREEMENT:
+            raise AssertionError(f"Zamba2-7B {name}: tokens differ from (i)")
+
+    with prefill_launches() as calls:
+        runtime.reset_launches()
+        t0 = time.monotonic()
+        eng = LockstepEngine(cfg, params, EngineConfig(bucket=ZAMBA_BUCKET, max_batch=B,
+                                                       max_seq=4096))
+        res = eng.generate([Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    _add_launches(report, "hybrid_launches", dict(runtime.launches))
+    for r in res:
+        if r.tokens.shape != (NEW_TOKENS,) or r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"LockstepEngine: bad output {r.tokens}")
+    print(f"  LockstepEngine (bucket {ZAMBA_BUCKET}): {len(calls)} batched prefill of {B} "
+          f"rows x {ZAMBA_BUCKET} tokens, launches {calls}; {B * NEW_TOKENS} tokens in "
+          f"{wall:.2f} s [{card}]")
+    if calls != [{"pack_encode": L}]:
+        raise AssertionError(f"LockstepEngine: prefill launches {calls}, expected one call "
+                             f"of {L} Store launches")
+    del eng
+
+    # Where the time goes: one decode step with the four rows live, and a
+    # 1000-token full-length prefill (the admission of the longest prompt).
+    server = Server(cfg, params, ServerConfig(**base))
+    for p in prompts:
+        server.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
+    while server.pending or server.active < B:
+        server.step()
+    torch.cuda.synchronize()
+    mamba = (("kvcomp/mamba", "Mamba2 matmuls", True), ("kvcomp/mamba", "Mamba2 other", False))
+    _print_profile(f"Zamba2-7B packed dense decode step ({B} rows) [{card}]",
+                   *_scope_profiled(server.step, mamba))
+    server.run()
+    del server
+    toks = torch.as_tensor(prompts[-1][None], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _print_profile(f"Zamba2-7B full-length prefill, {toks.shape[1]} tokens [{card}]",
+                   *_scope_profiled(lambda: M.prefill(params, cfg, {"tokens": toks}, 4096),
+                                    (("kvcomp/ssd_scan", "ssd_scan", False), *mamba)))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    q, k, v = (torch.randn((1, toks.shape[1], cfg.n_heads, cfg.resolved_head_dim),
+                           generator=g, device="cuda") for _ in range(3))
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    fa = timed(lambda: attention.flash_attention(q, k, v, causal=True), iters=10)
+    sd = timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), iters=10)
+    diff = float((attention.flash_attention(q, k, v, causal=True)
+                  - F.scaled_dot_product_attention(qs, ks, vs, is_causal=True).transpose(1, 2))
+                 .abs().max())
+    print(f"  full-length attention, {toks.shape[1]} tokens x {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, float32, causal: flash_attention {fa:.4f} ms, "
+          f"scaled_dot_product_attention {sd:.4f} ms (max |diff| {diff:.2e}) [{card}]")
+    if not diff <= 1e-4:
+        raise AssertionError(f"flash_attention vs scaled_dot_product_attention: {diff}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  Zamba2-7B: peak device memory of the prefill and the attention timing "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    report["zamba"] = dict(tok_s=first["tok_s"], peak_gib=peak / 2**30, attn_ms=fa, sdpa_ms=sd)
+    del params, q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    print("  (c) Mamba2-1.3B at full width and depth", flush=True)
+    cfg, params = full_model("mamba2_1_3b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    base = dict(max_slots=B, max_seq=4096)
+    r = _serve_run(cfg, params, prompts, ServerConfig(**base), NEW_TOKENS)
+    if any(r["launches"].values()) or r["per_step"] != {()}:
+        raise AssertionError(f"Mamba2 launched a kernel: {r['launches']}")
+    solo = []
+    for p in prompts:
+        server = Server(cfg, params, ServerConfig(**base))
+        solo.append(server.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS)).result().tokens)
+        del server
+    same = sum(int(np.array_equal(x, y)) for x, y in zip(r["tokens"], solo))
+    print(f"  Mamba2-1.3B batched vs solo: {same}/{len(prompts)} requests with identical greedy "
+          f"tokens; no Fetch or Store launch (no KV cache)")
+    if same / len(prompts) < MIN_AGREEMENT:
+        raise AssertionError("Mamba2-1.3B: batched tokens differ from solo")
+    try:
+        Server(cfg, params, ServerConfig(cache_mode="paged", **base))
+    except ValueError as e:
+        print(f"  paged mode refused: {e}")
+    else:
+        raise AssertionError("Mamba2-1.3B: paged mode was not refused")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  Mamba2-1.3B: peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    report["mamba2"] = dict(tok_s=r["tok_s"], peak_gib=peak / 2**30)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase 17: {time.monotonic() - t_phase:.1f} s [{card}]")
 
 
 def fetch_cases() -> dict:
@@ -2367,42 +2693,56 @@ def main() -> int:
         print(card_line())
         return 0
     report: dict = {}
+    t_last = [time.monotonic()]
+
+    def phase(label: str) -> None:
+        now = time.monotonic()
+        print(f"    ({now - t_last[0]:.1f} s)", flush=True)
+        t_last[0] = now
+        print(label, flush=True)
+
     print("[3] kernels vs plain at Yi-6B shapes", flush=True)
     phase_kernels(report)
-    print("[4] paged kernels vs plain at Yi-6B shapes", flush=True)
+    phase("[4] paged kernels vs plain at Yi-6B shapes")
     phase_paged_kernels(report)
-    print("[11] huffman decode kernels at Yi-6B width", flush=True)
+    phase("[11] huffman decode kernels at Yi-6B width")
     phase_huffman_kernels(report)
-    print("[5] serve full-width Yi-6B, dense", flush=True)
+    phase("[5] serve full-width Yi-6B, dense")
     cfg, params = yi_6b()
     phase_serve(report, cfg, params)
-    print("[8] reference check on the smoke model", flush=True)
+    phase("[8] reference check on the smoke model")
     phase_reference()
-    print("[9] serve full-width Yi-6B, paged", flush=True)
+    phase("[9] serve full-width Yi-6B, paged")
     phase_paged_serve(report, cfg, params)
-    print("[12] serve full-width Yi-6B, huffman", flush=True)
+    phase("[12] serve full-width Yi-6B, huffman")
     phase_huffman_serve(report, cfg, params)
-    print("[13] serve full-width Yi-6B from shared prompt pages (prefix cache)", flush=True)
+    phase("[13] serve full-width Yi-6B from shared prompt pages (prefix cache)")
     phase_prefix_serve(report, cfg, params)
-    print("[14] request lifecycle: chaos soak and cancel", flush=True)
+    phase("[14] request lifecycle: chaos soak and cancel")
     phase_lifecycle(report, cfg, params)
-    print("[15] observability and the facade at full width", flush=True)
+    phase("[15] observability and the facade at full width")
     phase_observability(report, cfg, params)
     del params
     torch.cuda.empty_cache()
-    print("[16] the MoE family: Qwen3-30B-A3B and Mixtral-8x22B at full width", flush=True)
+    phase("[16] the MoE family: Qwen3-30B-A3B and Mixtral-8x22B at full width")
     phase_moe(report)
-    print("[10] kernel times", flush=True)
+    phase("[17] the ssm and hybrid families: Zamba2-7B and Mamba2-1.3B at full width and "
+          "depth")
+    phase_hybrid(report)
+    phase("[10] kernel times")
     kernels = phase_times(report)
-    mk, mf = report["mixtral_kernels"], report["mixtral_fetch_err"]
-    errs = {"fused_kv_attn": max(mk["fetch_err"], mf["fused_kv_attn"]),
-            "fused_kv_attn_paged": mf["fused_kv_attn_paged"],
-            "fused_kv_attn_huffman": mk["fetch_huffman_err"], "pack_encode": mk["store_err"]}
-    for k in kernels:  # phase 16's runs are main paths too
-        k["launches"] += report["moe_launches"].get(k["name"], 0)
+    mk, mf, zk = report["mixtral_kernels"], report["mixtral_fetch_err"], report["zamba_kernels"]
+    errs = {"fused_kv_attn": max(mk["fetch_err"], mf["fused_kv_attn"], zk["fetch_err"]),
+            "fused_kv_attn_paged": max(mf["fused_kv_attn_paged"], zk["fetch_paged_err"]),
+            "fused_kv_attn_huffman": max(mk["fetch_huffman_err"], zk["fetch_huffman_err"]),
+            "fused_kv_attn_huffman_paged": zk["fetch_huffman_paged_err"],
+            "pack_encode": max(mk["store_err"], zk["store_err"])}
+    for k in kernels:  # phase 16's and 17's runs are main paths too
+        k["launches"] += (report["moe_launches"].get(k["name"], 0)
+                          + report["hybrid_launches"].get(k["name"], 0))
         if k["name"] in errs:
             k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
-    print(f"total {time.monotonic() - t_start:.1f} s")
+    phase(f"total {time.monotonic() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -83,8 +83,9 @@ def serve(cfg, params, *, max_slots: int = 8, max_seq: int = 4096,
     ``backpressure``, ``default_deadline_s``, ``faults``, ``audit_every``).
     ``mesh`` belongs to a later slice of the port and raises
     ``NotImplementedError`` unless None.  ``q_chunk`` / ``kv_chunk`` size the
-    reference's full-length prefill, which serves only families the port
-    does not serve yet; they are accepted and change nothing here.
+    full-length prefill that admits the ssm and hybrid families (the query
+    block of ``attention.flash_attention``; ``kv_chunk`` is accepted for the
+    reference's signature and never splits a key range).
     """
     if q_chunk < 1 or kv_chunk < 1:
         raise ValueError(f"q_chunk and kv_chunk must be >= 1, got {q_chunk}, {kv_chunk}")
@@ -105,7 +106,7 @@ def serve(cfg, params, *, max_slots: int = 8, max_seq: int = 4096,
                                default_deadline_s=default_deadline_s,
                                faults=faults,
                                audit_every=audit_every),
-                  device=device)
+                  device=device, q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
 def available_layouts() -> tuple[str, ...]:

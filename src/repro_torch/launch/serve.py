@@ -5,6 +5,7 @@ cache (the port of ``repro.launch.serve``).
     python -m repro_torch.launch.serve --arch yi_6b --layout raw   # baseline
     python -m repro_torch.launch.serve --device cpu ...            # no card
     python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b   # MoE (or mixtral_8x22b)
+    python -m repro_torch.launch.serve --arch zamba2_7b   # hybrid (or mamba2_1_3b, ssm)
 
 Requests get heterogeneous prompt lengths and token budgets and are pushed
 through the ``api.serve`` Server: slots admit, decode at per-row positions,

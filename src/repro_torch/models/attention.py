@@ -1,10 +1,12 @@
-"""Attention over the compressed KV cache: GQA projections, the block-chunked
-prefill step and the one-token decode step (the port of
-``repro.models.attention``, serving path).  Layout-agnostic: the cache's
-``CacheSpec`` names the layout, and ``cache.attend`` dispatches to the
-Fetch kernel or the blockwise scan."""
+"""Attention over the compressed KV cache: GQA projections, the
+full-length attention of the prefill, the block-chunked prefill step and
+the one-token decode step (the port of ``repro.models.attention``, serving
+path).  Layout-agnostic: the cache's ``CacheSpec`` names the layout, and
+``cache.attend`` dispatches to the Fetch kernel or the blockwise scan."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,6 +50,66 @@ def out_project(params, attn_out: torch.Tensor) -> torch.Tensor:
     """attn_out [B, S, H, Dh] @ wo [H, Dh, d] -> [B, S, d]."""
     wo = params["wo"]
     return attn_out.reshape(*attn_out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+NEG = -1e9
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                    window: int | None = None, q_chunk: int = 512, kv_chunk: int = 512,
+                    scale: float | None = None) -> torch.Tensor:
+    """Full-sequence attention.  q: [B, S, H, Dh]; k, v: [B, S, Hkv, Dh]
+    (GQA broadcast inside); causal and sliding-window masks as the
+    reference applies them (key p is visible to query s when p <= s if
+    causal, and p > s - window under a window).
+
+    The reference runs a two-level online-softmax loop over query and key
+    chunks snapped to divisors of S (a prime S gives chunks of one token).
+    Here the queries go in blocks of ``q_chunk`` whatever S is, each block
+    against its whole visible key range in one masked product and one
+    softmax, which bounds the scores at O(q_chunk·S) a head: a few large
+    plain products.  ``kv_chunk`` is accepted for the reference's signature;
+    the key range of a block is never split.  Float32 throughout; equal to
+    the reference within float32 rounding (tests/test_torch_ssm.py)."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, S, Hkv, G, Dh)
+    kf, vf = k.to(f32), v.to(f32)
+    out = torch.empty((B, S, Hkv, G, Dh), dtype=f32, device=q.device)
+    pos = torch.arange(S, device=q.device)
+    step = max(1, min(q_chunk, S))
+    for lo in range(0, S, step):
+        hi = min(S, lo + step)
+        k_hi = hi if causal else S
+        k_lo = max(0, lo - window + 1) if window is not None else 0
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, lo:hi], kf[:, k_lo:k_hi]) * scale
+        qp, kp = pos[lo:hi, None], pos[None, k_lo:k_hi]
+        mask = torch.ones((hi - lo, k_hi - k_lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qp >= kp
+        if window is not None:
+            mask &= kp > qp - window
+        p = torch.softmax(s.masked_fill(~mask, NEG), dim=-1)
+        out[:, lo:hi] = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, k_lo:k_hi])
+    return out.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def attn_block_prefill(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                       spec: kvcache.CacheSpec, q_chunk: int = 512, kv_chunk: int = 512):
+    """Full-length prefill of one attention block: attend the prompt in
+    full, and build this layer's compressed cache from its K/V in one
+    Store call (``cache.prefill``: every whole block of the prompt, the
+    remainder in the raw buffer).  ``spec`` is this layer's dense spec."""
+    h = layers.rms_norm(x, params["ln_attn"], cfg.norm_eps)
+    q, k, v = qkv_project(params["attn"], cfg, h, positions)
+    o = flash_attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
+                        window=cfg.sliding_window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    cache = kvcache.prefill(spec, k.transpose(1, 2), v.transpose(1, 2))
+    return x + out_project(params["attn"], o), cache
 
 
 def attn_block_chunk(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,

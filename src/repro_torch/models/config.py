@@ -1,12 +1,12 @@
-"""Model configuration: the decoder families' fields plus the ``cache_*``
-block.
+"""Model configuration: one dataclass drives every architecture family
+(dense, MoE, ssm, hybrid) plus the ``cache_*`` block.
 
-The port's own copy of ``repro.models.config.ModelConfig`` (same field names
-and defaults) restricted to what the port serves: the dense and MoE decoder
-families (the ssm and hybrid families, and the encoder-only options, belong
-to a later slice).  The paper's technique (compressed KV cache) is a config
-block, so a model flips between raw / kivi / packed / huffman caches without
-touching model code.
+The port's own copy of ``repro.models.config.ModelConfig``, with the same
+field names and defaults (the reference's blockwise-scan tuning knobs and
+the ``dtype`` tag are left out: the port has no such scan knobs, and its
+serving parameters are float32).  The paper's technique (compressed KV
+cache) is a config block, so a model flips between raw / kivi / packed /
+huffman caches without touching model code.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "moe" (ssm and hybrid are a later slice)
+    family: str  # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     vocab_size: int
@@ -30,7 +30,11 @@ class ModelConfig:
     rope_theta: float = 10000.0
     # mlp
     d_ff: int = 0
+    # structure
+    encoder_only: bool = False
+    causal: bool = True
     tie_embeddings: bool = False
+    input_mode: str = "tokens"  # tokens | embeddings (audio/vlm frontend stub)
     norm_eps: float = 1e-5
     # MoE
     n_experts: int = 0
@@ -38,6 +42,16 @@ class ModelConfig:
     d_ff_expert: int = 0
     router_aux_coef: float = 0.01
     capacity_factor: float = 1.25
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 128
+    # hybrid (Zamba2-style): every ``hybrid_period``-th block is a SHARED
+    # attention+MLP block; the rest are Mamba2 blocks.
+    hybrid_period: int = 0
     # KV-cache compression (the paper's technique): ``cache_layout`` names a
     # registered repro_torch.core.layouts.CacheLayout; ``cache_overrides``
     # is a tuple of repro_torch.core.policy.LayerOverride.
@@ -72,18 +86,35 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def param_count(self) -> int:
-        """Analytic parameter count of the dense and MoE families."""
-        d, v, dh = self.d_model, self.vocab_size, self.resolved_head_dim
+        """Analytic parameter count of the four families."""
+        d, v = self.d_model, self.vocab_size
+        dh = self.resolved_head_dim if self.n_heads else 0
         emb = v * d * (1 if self.tie_embeddings else 2)
         attn = d * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * d
+        mlp = 3 * d * self.d_ff
         if self.family == "dense":
-            ffn = 3 * d * self.d_ff
-        elif self.family == "moe":
-            ffn = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
-        else:
-            raise ValueError(self.family)
-        return emb + self.n_layers * (attn + ffn + 2 * d) + d
+            return emb + self.n_layers * (attn + mlp + 2 * d) + d
+        if self.family == "moe":
+            moe = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+            return emb + self.n_layers * (attn + moe + 2 * d) + d
+        di, N, G, H = self.d_inner, self.ssm_state, self.ssm_groups, self.ssm_heads
+        mamba = (d * (2 * di + 2 * G * N + H) + (di + 2 * G * N) * self.ssm_conv
+                 + di * d + 2 * H + di + d)
+        if self.family == "ssm":
+            return emb + self.n_layers * mamba + d
+        if self.family == "hybrid":
+            n_mamba = self.n_layers - self.n_layers // self.hybrid_period
+            return emb + n_mamba * mamba + (attn + mlp + 2 * d) + d  # ONE shared block
+        raise ValueError(self.family)
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: top_k of n_experts)."""
@@ -100,16 +131,22 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         n_layers=2,
         d_model=64,
         vocab_size=256,
-        n_heads=4,
-        n_kv_heads=min(cfg.n_kv_heads, 2),
-        head_dim=16,
+        n_heads=4 if cfg.n_heads else 0,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
+        head_dim=16 if cfg.n_heads else 0,
         d_ff=128 if cfg.d_ff else 0,
         n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
         top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         d_ff_expert=64 if cfg.d_ff_expert else 0,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_head_dim=16 if cfg.ssm_state else 64,
+        ssm_chunk=16 if cfg.ssm_state else 128,
         sliding_window=64 if cfg.sliding_window else None,
+        hybrid_period=3 if cfg.hybrid_period else 0,
         cache_block=8,
         name=cfg.name + "-smoke",
     )
+    if cfg.hybrid_period:
+        base["n_layers"] = 7  # 2 periods of 3 + 1 remainder
     base.update(overrides)
     return dataclasses.replace(cfg, **base)

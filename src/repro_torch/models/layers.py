@@ -25,6 +25,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
+def rms_norm_gated(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's RMSNormGated: normalize(x * silu(gate)) * scale."""
+    xf = (x * F.silu(gate)).to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
     return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))

@@ -1,19 +1,31 @@
-"""Model assembly for the dense and MoE families (the port of
-``repro.models.model``, serving entry points).
+"""Model assembly for the dense, MoE, ssm and hybrid families (the port of
+``repro.models.model``, serving entry points: the full-length ``prefill``,
+``decode_step`` and the block-chunked ``prefill_chunk``).
 
-Parameters are nested dicts of tensors: ``emb`` (``embed``, ``unembed``),
-``ln_f``, and ``blocks`` — one dict per layer (``ln_attn``, ``attn``
-{wq, wk, wv, wo}, then the FFN: dense ``ln_mlp``, ``mlp`` {w_gate, w_up,
-w_down}; MoE ``ln_moe``, ``moe`` {router, w_gate, w_up, w_down}) with the
-reference's shapes, so ``repro_torch.convert.params_from_jax`` maps the
-reference's stacked pytree onto them one layer at a time.
+Parameters are nested dicts of tensors with the reference's names and
+shapes: ``emb`` (``embed``, ``unembed``), ``ln_f``, and
 
-The decode state is ``{"kv": [LayerKVCache, ...]}``, one cache per layer
-(each with its own spec, so per-layer policies need no special case).
-``decode_step`` and ``prefill_chunk`` update the caches in place.  Under
-``cache_mode="paged"`` with a sized pool the caches hold one shared arena
-each plus per-row page tables (DESIGN.md §10); the functions at the end of
-the module are the scheduler's page-table and encode-to-page operations.
+* dense / MoE: ``blocks``, one dict per layer (``ln_attn``, ``attn`` {wq,
+  wk, wv, wo}, then the FFN: dense ``ln_mlp``, ``mlp`` {w_gate, w_up,
+  w_down}; MoE ``ln_moe``, ``moe`` {router, w_gate, w_up, w_down});
+* ssm: ``blocks``, one Mamba2 dict per layer (``models.ssm``);
+* hybrid (Zamba2): ``mamba``, ``n_periods`` lists of ``period - 1`` Mamba2
+  dicts, ``mamba_tail`` (the remainder, when there is one) and ONE
+  ``attn_shared`` attention+MLP block that every period runs after its
+  Mamba2 blocks.
+
+``repro_torch.convert.params_from_jax`` maps the reference's stacked pytree
+onto them.
+
+The decode state is ``{"kv": [LayerKVCache, ...]}`` with one cache per
+attention layer (a hybrid has one per period: ``n_cache_layers``), plus
+``"ssm"`` (ssm: a state dict per layer; hybrid: per period, per block) and
+``"ssm_tail"`` (hybrid), each state dict ``{"conv" [B, K-1, C], "ssm"
+[B, H, N, P]}``.  ``decode_step`` and ``prefill_chunk`` update the state
+in place.  Under ``cache_mode="paged"`` with a sized pool the caches hold
+one shared arena each plus per-row page tables (DESIGN.md §10); the
+functions at the end of the module are the scheduler's page-table and
+encode-to-page operations.
 """
 
 from __future__ import annotations
@@ -23,15 +35,29 @@ import torch
 from repro_torch.core import cache as kvcache
 from repro_torch.core import pool
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} belongs to a later slice of the port "
-            "(ROADMAP.md §1 item 6); the port serves the dense and moe families")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; the port serves {FAMILIES}")
+
+
+def _hybrid_counts(cfg: ModelConfig):
+    """(periods, Mamba2 blocks a period, tail Mamba2 blocks) of a hybrid."""
+    period = cfg.hybrid_period
+    n_periods = cfg.n_layers // period
+    return n_periods, period - 1, cfg.n_layers - n_periods * period
+
+
+def _dense_block(gen, cfg: ModelConfig, kw):
+    return {"ln_attn": torch.ones((cfg.d_model,), **kw),
+            "attn": attention.init_attention(gen, cfg, **kw),
+            "ln_mlp": torch.ones((cfg.d_model,), **kw),
+            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.float32):
@@ -43,27 +69,43 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.floa
     kw = dict(device=dev, dtype=dtype)
     params = {"emb": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                            cfg.tie_embeddings, **kw),
-              "ln_f": torch.ones((cfg.d_model,), **kw), "blocks": []}
-    for _ in range(cfg.n_layers):
-        if cfg.family == "moe":
-            params["blocks"].append(moe.init_moe_block(gen, cfg, **kw))
-            continue
-        params["blocks"].append({
-            "ln_attn": torch.ones((cfg.d_model,), **kw),
-            "attn": attention.init_attention(gen, cfg, **kw),
-            "ln_mlp": torch.ones((cfg.d_model,), **kw),
-            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
-        })
+              "ln_f": torch.ones((cfg.d_model,), **kw)}
+    if cfg.family == "dense":
+        params["blocks"] = [_dense_block(gen, cfg, kw) for _ in range(cfg.n_layers)]
+    elif cfg.family == "moe":
+        params["blocks"] = [moe.init_moe_block(gen, cfg, **kw) for _ in range(cfg.n_layers)]
+    elif cfg.family == "ssm":
+        params["blocks"] = [ssm.init_mamba_block(gen, cfg, **kw)
+                            for _ in range(cfg.n_layers)]
+    else:
+        n_periods, ppm, tail = _hybrid_counts(cfg)
+        params["mamba"] = [[ssm.init_mamba_block(gen, cfg, **kw) for _ in range(ppm)]
+                           for _ in range(n_periods)]
+        if tail:
+            params["mamba_tail"] = [ssm.init_mamba_block(gen, cfg, **kw)
+                                    for _ in range(tail)]
+        # ONE shared attention block (Zamba2's weight-shared attention).
+        params["attn_shared"] = _dense_block(gen, cfg, kw)
     return params
+
+
+def n_cache_layers(cfg: ModelConfig) -> int:
+    """How many KV caches the decode state holds (hybrid: one per period)."""
+    if cfg.family in ("dense", "moe"):
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return _hybrid_counts(cfg)[0]
+    return 0
 
 
 def cache_specs(cfg: ModelConfig, max_seq: int,
                 pool_pages: int = 0) -> tuple[kvcache.CacheSpec, ...]:
-    """Per-layer specs resolved from the model's CompressionPolicy.
+    """Per-cache-layer specs resolved from the model's CompressionPolicy.
     ``pool_pages`` sizes the shared paged arena (``cache_mode="paged"``);
     with the default 0 a paged policy resolves to its dense twin."""
     return cfg.compression_policy().layer_specs(
-        cfg.n_layers, max_seq=max_seq, window=cfg.sliding_window, pool_pages=pool_pages)
+        n_cache_layers(cfg), max_seq=max_seq, window=cfg.sliding_window,
+        pool_pages=pool_pages)
 
 
 def cache_spec(cfg: ModelConfig, max_seq: int, pool_pages: int = 0) -> kvcache.CacheSpec:
@@ -72,27 +114,74 @@ def cache_spec(cfg: ModelConfig, max_seq: int, pool_pages: int = 0) -> kvcache.C
         0, max_seq=max_seq, window=cfg.sliding_window, pool_pages=pool_pages)
 
 
+def _check_nonuniform_supported(cfg: ModelConfig) -> None:
+    if cfg.family == "hybrid" and cfg.cache_overrides:
+        raise NotImplementedError(
+            "per-layer cache_overrides are not supported for hybrid models "
+            "(all periods share one weight-shared attention block)")
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cuda", pool_pages: int = 0):
     """Fresh (empty) decode state for all layers.  ``pool_pages`` (serving
     only) sizes each layer's shared arena under ``cache_mode="paged"``."""
     _check_family(cfg)
-    return {"kv": [kvcache.init_layer_cache(s, batch, cfg.n_kv_heads,
-                                            cfg.resolved_head_dim, dtype, device)
-                   for s in cache_specs(cfg, max_seq, pool_pages)]}
+    _check_nonuniform_supported(cfg)
+    dev = resolve_device(device)
+    state = {}
+    if cfg.family != "ssm":
+        state["kv"] = [kvcache.init_layer_cache(s, batch, cfg.n_kv_heads,
+                                                cfg.resolved_head_dim, dtype, dev)
+                       for s in cache_specs(cfg, max_seq, pool_pages)]
+
+    def fresh():
+        return ssm.init_mamba_state(cfg, batch, device=dev)
+
+    if cfg.family == "ssm":
+        state["ssm"] = [fresh() for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        n_periods, ppm, tail = _hybrid_counts(cfg)
+        state["ssm"] = [[fresh() for _ in range(ppm)] for _ in range(n_periods)]
+        if tail:
+            state["ssm_tail"] = [fresh() for _ in range(tail)]
+    return state
+
+
+def _insert_leaf(d: torch.Tensor, s: torch.Tensor, row: int) -> None:
+    """The reference's per-leaf splice: equal shapes copy whole (a one-slot
+    server); otherwise the batch axis is the first axis where the shapes
+    differ, and the source has extent 1 there."""
+    if d.shape == s.shape:
+        d.copy_(s)
+        return
+    axis = next(i for i, (a, b) in enumerate(zip(d.shape, s.shape)) if a != b)
+    if s.shape[axis] != 1:
+        raise ValueError(f"source state is not batch=1: {tuple(s.shape)} at axis {axis}")
+    d.narrow(axis, row, 1).copy_(s)
+
+
+def _insert_tree(d, s, row: int) -> None:
+    if isinstance(d, dict):
+        for key in d:
+            _insert_tree(d[key], s[key], row)
+    elif isinstance(d, (list, tuple)):
+        for a, b in zip(d, s):
+            _insert_tree(a, b, row)
+    else:
+        _insert_leaf(d, s, row)
 
 
 def insert_decode_row(dst_state, src_state, row: int):
     """Copy a batch-1 decode state into row ``row`` of a batched one, in
-    place — the continuous-batching admission splice.  Tensors of equal
-    shape (layout dummies, or a one-slot server) are copied whole."""
-    for dst, src in zip(dst_state["kv"], src_state["kv"]):
-        for f in kvcache.LayerKVCache.FIELDS:
-            d, s = getattr(dst, f), getattr(src, f)
-            if d.shape == s.shape:
-                d.copy_(s)
-            else:
-                d[row].copy_(s[0])
+    place — the continuous-batching admission splice, for every family:
+    each cache field and each SSM state leaf takes the per-leaf rule."""
+    for key in dst_state:
+        if key == "kv":
+            for dst, src in zip(dst_state["kv"], src_state["kv"]):
+                for f in kvcache.LayerKVCache.FIELDS:
+                    _insert_leaf(getattr(dst, f), getattr(src, f), row)
+        else:
+            _insert_tree(dst_state[key], src_state[key], row)
     return dst_state
 
 
@@ -100,9 +189,14 @@ def insert_decode_row_paged(dst_state, src_state, row: int, pages: torch.Tensor)
     """Paged admission splice: land a batch-1 *dense* decode state (the
     paged spec's dense twin) in row ``row`` of a paged one, scattering its
     blocks into the arena pages ``pages`` (int32 [NB], -1 where the prompt
-    left the slot empty) and writing the page-table row."""
-    for d, s in zip(dst_state["kv"], src_state["kv"]):
-        pool.splice_row(d, s, row, pages)
+    left the slot empty) and writing the page-table row.  Every non-KV
+    leaf (a hybrid's SSM states) takes the per-leaf splice."""
+    for key in dst_state:
+        if key == "kv":
+            for d, s in zip(dst_state["kv"], src_state["kv"]):
+                pool.splice_row(d, s, row, pages)
+        else:
+            _insert_tree(dst_state[key], src_state[key], row)
     return dst_state
 
 
@@ -176,16 +270,95 @@ def _ffn_block(block_p, cfg, x):
     return x + layers.mlp(block_p["mlp"], h)
 
 
+def _embed_input(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        return layers.embed_tokens(params["emb"], batch["tokens"])
+    return batch["embeddings"]  # audio/vlm frontend stub: precomputed
+
+
+def _shared_block_tail(params, cfg: ModelConfig, x):
+    """The hybrid's weight-shared block after its attention: the MLP."""
+    p = params["attn_shared"]
+    return x + layers.mlp(p["mlp"], layers.rms_norm(x, p["ln_mlp"], cfg.norm_eps))
+
+
+def prefill(params, cfg: ModelConfig, batch, max_seq: int,
+            q_chunk: int = 512, kv_chunk: int = 512):
+    """Process a whole prompt: ``batch`` {"tokens": int [B, S]} (or
+    {"embeddings": [B, S, d]} for ``input_mode="embeddings"``).  Returns
+    (logits [B, S, V], a fresh batch-B decode state): every attention
+    layer's compressed cache built from the prompt's K/V in one Store call
+    (whole blocks; the remainder in the raw buffer), every Mamba2 block's
+    conv window and SSM state.  Caches are dense (the dense twin of a
+    paged spec); the scheduler splices them into its live state."""
+    _check_family(cfg)
+    _check_nonuniform_supported(cfg)
+    x = _embed_input(params, cfg, batch)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
+    state = {}
+    if cfg.family in ("dense", "moe"):
+        caches = []
+        for block_p, spec in zip(params["blocks"], cache_specs(cfg, max_seq)):
+            x, cache = attention.attn_block_prefill(block_p, cfg, x, positions, spec, **kw)
+            x = _ffn_block(block_p, cfg, x)
+            caches.append(cache)
+        state["kv"] = caches
+    elif cfg.family == "ssm":
+        state["ssm"] = []
+        for block_p in params["blocks"]:
+            x, st = ssm.mamba_block_prefill(block_p, cfg, x)
+            state["ssm"].append(st)
+    else:
+        spec = cache_spec(cfg, max_seq)
+        state["kv"], state["ssm"] = [], []
+        for period_p in params["mamba"]:
+            states = []
+            for block_p in period_p:
+                x, st = ssm.mamba_block_prefill(block_p, cfg, x)
+                states.append(st)
+            x, cache = attention.attn_block_prefill(params["attn_shared"], cfg, x,
+                                                    positions, spec, **kw)
+            x = _shared_block_tail(params, cfg, x)
+            state["ssm"].append(states)
+            state["kv"].append(cache)
+        if "mamba_tail" in params:
+            state["ssm_tail"] = []
+            for block_p in params["mamba_tail"]:
+                x, st = ssm.mamba_block_prefill(block_p, cfg, x)
+                state["ssm_tail"].append(st)
+    x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return layers.unembed(params["emb"], x), state
+
+
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, position, state):
-    """One decode step.  tokens: int [B]; position: int [B] (each row's
-    current length; a scalar broadcasts).  Returns (logits [B, V], state)."""
+    """One decode step.  tokens: int [B] (or [B, d] embeddings); position:
+    int [B] (each row's current length; a scalar broadcasts).  Returns
+    (logits [B, V], state)."""
     position = torch.as_tensor(position, dtype=torch.int32, device=tokens.device)
     if position.dim() == 0:
         position = position.expand(tokens.shape[0])
-    x = layers.embed_tokens(params["emb"], tokens[:, None])
-    for block_p, cache in zip(params["blocks"], state["kv"]):
-        x, _ = attention.attn_block_decode(block_p, cfg, x, position, cache)
-        x = _ffn_block(block_p, cfg, x)
+    if cfg.input_mode == "tokens":
+        x = layers.embed_tokens(params["emb"], tokens[:, None])
+    else:
+        x = tokens[:, None, :]
+    if cfg.family in ("dense", "moe"):
+        for block_p, cache in zip(params["blocks"], state["kv"]):
+            x, _ = attention.attn_block_decode(block_p, cfg, x, position, cache)
+            x = _ffn_block(block_p, cfg, x)
+    elif cfg.family == "ssm":
+        for block_p, st in zip(params["blocks"], state["ssm"]):
+            x, _ = ssm.mamba_block_decode(block_p, cfg, x, st)
+    else:
+        for period_p, states, cache in zip(params["mamba"], state["ssm"], state["kv"]):
+            for block_p, st in zip(period_p, states):
+                x, _ = ssm.mamba_block_decode(block_p, cfg, x, st)
+            x, _ = attention.attn_block_decode(params["attn_shared"], cfg, x, position,
+                                               cache)
+            x = _shared_block_tail(params, cfg, x)
+        for block_p, st in zip(params.get("mamba_tail", ()), state.get("ssm_tail", ())):
+            x, _ = ssm.mamba_block_decode(block_p, cfg, x, st)
     x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return layers.unembed(params["emb"], x[:, 0]), state
 
@@ -194,7 +367,12 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, pos0, state):
     """One block-chunked prefill step: tokens int [B, C], up to
     ``block_size`` prompt tokens starting at the block boundary ``pos0``
     (scalar or [B]); ``state``'s caches sit at that boundary (raw buffers
-    empty).  Returns (logits [B, V] of the chunk's LAST token, state)."""
+    empty).  Returns (logits [B, V] of the chunk's LAST token, state).
+    Pure-KV families only, as in the reference: an SSM state has no
+    chunk step."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"block-chunked prefill needs pure-KV decode state (family {cfg.family!r})")
     B, C = tokens.shape
     pos0 = torch.as_tensor(pos0, dtype=torch.int32, device=tokens.device)
     if pos0.dim() == 0:

@@ -7,8 +7,9 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-# The reference's decoder archs, in its order; hubert_xlarge (encoder-only),
-# mamba2_1_3b (ssm) and zamba2_7b (hybrid) come with the full-length prefill.
+# The reference's archs, in its order.  hubert_xlarge (encoder-only) is
+# registered with its config; its forward comes with the training slice, and
+# the Server refuses it.
 ARCHS = [
     "mixtral_8x22b",
     "qwen3_moe_30b_a3b",
@@ -17,6 +18,9 @@ ARCHS = [
     "command_r_35b",
     "stablelm_12b",
     "chameleon_34b",
+    "hubert_xlarge",
+    "mamba2_1_3b",
+    "zamba2_7b",
     # the paper's own evaluation models
     "llama2_7b",
     "llama2_13b",

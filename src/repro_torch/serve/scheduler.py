@@ -9,13 +9,18 @@ an admission queue:
            -> decode steps (every slot at its own position)
            -> retire at EOS / length -> slot reused by the next request
 
-Admission is the reference's unified chunk loop: a queued prompt claims a
-free slot as a PREFILLING row and runs ``block_size``-token chunks
-(``model.prefill_chunk``) on a private batch-1 state, at most
-``ServerConfig.prefill_chunk_tokens`` prompt tokens per server step
-("chunked", the default), or all of them at admission ("solo", the
-blocking baseline; the same numerics, so the same tokens).  The finished
-state is spliced into its slot (``model.insert_decode_row``).  Every step
+Admission follows the reference's split.  The dense and MoE families take
+its unified chunk loop: a queued prompt claims a free slot as a PREFILLING
+row and runs ``block_size``-token chunks (``model.prefill_chunk``) on a
+private batch-1 state, at most ``ServerConfig.prefill_chunk_tokens``
+prompt tokens per server step ("chunked", the default), or all of them at
+admission ("solo", the blocking baseline; the same numerics, so the same
+tokens).  The finished state is spliced into its slot
+(``model.insert_decode_row``).  The ssm and hybrid families have no chunk
+step (an SSM state is not made of blocks): they take the legacy admission
+(``_admit``), one full-length ``model.prefill`` of the exact prompt at
+batch 1, spliced into the slot dense or paged, while the live decode
+streams wait (``stalled_decode_steps`` counts those stalls).  Every step
 then runs one batched ``model.decode_step`` over all ``max_slots`` rows.
 
 The batch shape of the decode step is always ``max_slots`` and each row's
@@ -338,11 +343,20 @@ class _PrefillTask:
     chunks: int = 0
 
 
+def _leaves(tree):
+    """The tensors of a nested list / dict state (None: none)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [] if tree is None else [tree]
+
+
 class Server:
     """Slot-based continuous-batching server over the compressed KV cache."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServerConfig | None = None,
-                 device="cuda"):
+                 device="cuda", q_chunk: int = 512, kv_chunk: int = 512):
         scfg = scfg if scfg is not None else ServerConfig()
         if not scfg.greedy:
             raise NotImplementedError("only greedy decoding is served for now")
@@ -361,7 +375,12 @@ class Server:
         if cfg.cache_mode not in ("dense", "paged"):
             raise ValueError(f"unknown cache_mode {cfg.cache_mode!r}")
         self.paged = cfg.cache_mode == "paged"
+        if self.paged and M.n_cache_layers(cfg) == 0:
+            raise ValueError(
+                "paged cache mode needs attention KV caches "
+                f"(family {cfg.family!r} has none)")
         self.cfg, self.params, self.scfg = cfg, params, scfg
+        self._q_chunk, self._kv_chunk = q_chunk, kv_chunk
         B = scfg.max_slots
         self._slots: list[Handle | None] = [None] * B
         self._queue: collections.deque[Handle] = collections.deque()
@@ -403,22 +422,26 @@ class Server:
         # One data shard, under the reference's name.
         self._preempt_shard0 = self.metrics.counter("serve.shard0.preemptions")
 
-        # The dense twin of every layer's spec: uniform blocks are what
-        # block-chunked admission (and one page id for all layers) needs.
-        specs = M.cache_specs(cfg, scfg.max_seq)
-        if len({s.block_size for s in specs}) != 1:
+        # The dense twin of every cache layer's spec.  Block-chunked
+        # admission (the reference's unified path) needs a pure-KV family and
+        # one block size; every other model takes the full-length admission.
+        specs = M.cache_specs(cfg, scfg.max_seq) if M.n_cache_layers(cfg) else ()
+        if len({s.block_size for s in specs}) > 1:
             raise NotImplementedError(
-                "per-layer block sizes need the full-length prefill admission "
-                "of a later slice of the port")
-        self._spec0 = specs[0]
-        T = self._spec0.block_size
-        budget = scfg.prefill_chunk_tokens if scfg.prefill_chunk_tokens is not None else 8 * T
-        if budget % T:
-            raise ValueError(
-                f"prefill_chunk_tokens ({budget}) must be a positive multiple of "
-                f"block_size ({T}): chunked admission flushes whole blocks")
-        self._chunk_t, self._chunk_budget = T, budget
-        self.prefill_chunked = scfg.prefill_mode == "chunked"
+                "per-layer block sizes come with a later slice of the port")
+        self._spec0 = specs[0] if specs else None
+        self.prefill_unified = cfg.family in ("dense", "moe")
+        self.prefill_chunked = scfg.prefill_mode == "chunked" and self.prefill_unified
+        self._chunk_t = self._chunk_budget = None
+        if self.prefill_unified:
+            T = self._spec0.block_size
+            budget = (scfg.prefill_chunk_tokens if scfg.prefill_chunk_tokens is not None
+                      else 8 * T)
+            if budget % T:
+                raise ValueError(
+                    f"prefill_chunk_tokens ({budget}) must be a positive multiple of "
+                    f"block_size ({T}): chunked admission flushes whole blocks")
+            self._chunk_t, self._chunk_budget = T, budget
 
         self.pool = None
         if self.paged:
@@ -466,7 +489,7 @@ class Server:
                     f"prefill has no {cfg.family!r} step)")
             if self._share:
                 # One index (one data shard), under the reference's names.
-                self.index = PrefixIndex(T)
+                self.index = PrefixIndex(self._chunk_t)
                 self.metrics.register("prefix.index.shard0.inserted_blocks",
                                       self.index.m_inserted_blocks)
                 self.metrics.register("prefix.index.shard0.evicted_blocks",
@@ -526,6 +549,11 @@ class Server:
         spec = self._spec0
         total = (len(request.prompt) + request.max_new_tokens - 1) // spec.block_size
         return min(total, spec.n_blocks)
+
+    def _prefill_pages(self, request: Request) -> int:
+        """Pages the full-length admission prefill writes (the prompt's whole
+        blocks, ring-capped)."""
+        return min(len(request.prompt) // self._spec0.block_size, self._spec0.n_blocks)
 
     @property
     def active(self) -> int:
@@ -643,16 +671,20 @@ class Server:
 
     def _can_admit(self, handle: Handle) -> bool:
         """Memory-pressure admission (paged): the pages the first step's
-        chunks flush, plus one page of decode headroom, must be free.  Not
-        the request's whole lifetime: that is what lets slots oversubscribe,
-        and preemption covers the over-commitment later.  With sharing on,
-        the prefix index's hit is stashed on the handle and discounted (its
-        blocks are spliced, not prefilled), and cold index blocks are evicted
-        before the queue head is parked."""
+        chunks flush (the full-length admission: the prompt's blocks), plus
+        one page of decode headroom, must be free.  Not the request's whole
+        lifetime: that is what lets slots oversubscribe, and preemption
+        covers the over-commitment later.  With sharing on, the prefix
+        index's hit is stashed on the handle and discounted (its blocks are
+        spliced, not prefilled), and cold index blocks are evicted before
+        the queue head is parked."""
         if not self.paged:
             return True
         if self._fault("pool_alloc"):
             return False  # injected exhaustion: park the queue head
+        if not self.prefill_unified:
+            need = min(self._prefill_pages(handle.request) + 1, self.pool.n_pages)
+            return self.pool.free_pages >= need
         T, nb = self._spec0.block_size, self._spec0.n_blocks
         forced = self._forced(handle)
         n_full = len(forced) // T
@@ -674,6 +706,52 @@ class Server:
             # well: the row does not hold its pages yet.
             self.index.evict(self.pool, need, protect=hit)
         return self.pool.free_pages >= need
+
+    def _admit(self, handle: Handle, row: int) -> bool:
+        """The full-length admission of the families without a chunk step
+        (ssm, hybrid): prefill the request's exact prompt at batch 1 in one
+        call (``model.prefill``: every attention layer's whole blocks in one
+        Store call) and splice it into slot ``row``, dense or into freshly
+        allocated arena pages.  Every live decode stream waits meanwhile.
+        Returns False when the request finished at its prefill (a budget of
+        1, or an instant EOS) and the slot stays free."""
+        req = handle.request
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None], device=self.device)
+        if any(s is not None for s in self._slots):
+            # A solo admission freezes every live decode stream.
+            self._pf["stalled_decode_steps"].inc()
+        t0 = time.monotonic()
+        if handle._t_first is None:
+            handle._t_first = t0
+            self._h_queue.observe(t0 - handle._t_submit)
+        if self._tr is not None:
+            self._tr.emit("admit", req=handle.id, t=t0, row=row)
+        logits, solo = M.prefill(self.params, self.cfg, {"tokens": prompt}, self.scfg.max_seq,
+                                 q_chunk=self._q_chunk, kv_chunk=self._kv_chunk)
+        first = int(torch.argmax(logits[0, -1]))
+        t1 = time.monotonic()
+        # Summed over preemption replays; t_start keeps the first admission.
+        handle._prefill_s += t1 - t0
+        if handle._t_start is None:
+            handle._t_start = t1
+        if handle._push(first):
+            self._progress += 1  # retired at admission
+            return False
+        if self.paged:
+            n_blk = self._prefill_pages(req)
+            pages = np.full(self._spec0.n_blocks, -1, np.int64)
+            pages[:n_blk] = self.pool.alloc(n_blk)  # _can_admit checked they are free
+            self._pt_host[row] = pages
+            M.insert_decode_row_paged(self.state, solo, row, self._device_pages(row))
+        else:
+            M.insert_decode_row(self.state, solo, row)
+        self._slots[row] = handle
+        self._cur[row] = first
+        self._pos[row] = len(req.prompt)
+        self._progress += 1  # an admission is progress
+        self._seq += 1
+        self._row_seq[row] = self._seq
+        return True
 
     def _start_prefill(self, handle: Handle, row: int) -> None:
         """Claim slot ``row`` as a PREFILLING task: a private batch-1 state
@@ -991,7 +1069,7 @@ class Server:
                 f"{handle._requeues} times with max_requeues={self.scfg.max_requeues}"))
             return
         self._lc["requeues"].inc()
-        T = self._chunk_t
+        T = self._spec0.block_size
         task = self._prefill_tasks.pop(row, None)
         if task is not None:
             if self.paged:
@@ -1115,6 +1193,10 @@ class Server:
             if not self._can_admit(handle):
                 self._queue.appendleft(handle)  # pool pressure: park it
                 break
+            if not self.prefill_unified:
+                if self._admit(handle, row):
+                    free.remove(row)
+                continue
             self._start_prefill(handle, row)
             free.remove(row)
             task = self._prefill_tasks[row]
@@ -1170,10 +1252,13 @@ class Server:
 
     def memory_report(self) -> dict:
         """Measured bytes of the live decode state (all slots; in paged mode
-        the whole arena and the page tables)."""
+        the whole arena and the page tables): ``kv_bytes`` the KV caches,
+        ``total_bytes`` those plus the SSM states."""
         kv = sum(getattr(c, f).numel() * getattr(c, f).element_size()
-                 for c in self.state["kv"] for f in c.FIELDS)
-        return {"total_bytes": int(kv), "kv_bytes": int(kv),
+                 for c in self.state.get("kv", ()) for f in c.FIELDS)
+        other = sum(t.numel() * t.element_size()
+                    for key in ("ssm", "ssm_tail") for t in _leaves(self.state.get(key)))
+        return {"total_bytes": int(kv + other), "kv_bytes": int(kv),
                 "layout": self.cfg.cache_layout}
 
     def stats(self) -> dict:

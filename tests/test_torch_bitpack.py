@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.core import bitpack as JB  # noqa: E402

@@ -32,9 +32,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _filled_cache(layout, nb_valid, buf_len, device, seed=0, heads=4):
+def _filled_cache(layout, nb_valid, buf_len, device, seed=0, heads=4, dim=128):
     spec = TC.CacheSpec(layout=layout, block_size=64, max_seq=64 * 16)
-    B, H, D, NB = len(nb_valid), heads, 128, spec.n_blocks
+    B, H, D, NB = len(nb_valid), heads, dim, spec.n_blocks
     c = TC.init_layer_cache(spec, B, H, D, device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     blocks = [torch.randn((B, H, NB, 64, D), generator=g, device=device).to(torch.bfloat16)
@@ -113,6 +113,97 @@ def test_store_kernel_bit_exact_at_mixtral_shape(layout, cuda):
     for x, y in zip(a, b):
         assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
                            y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+
+
+ZAMBA_HKV, ZAMBA_G, ZAMBA_D = 32, 1, 112  # Zamba2-7B's shared attention block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("layout", ["packed", "kivi", "raw", "huffman"])
+def test_fetch_kernel_matches_plain_at_zamba_shape(layout, paged, cuda):
+    """One query head a KV head and head_dim 112, dense and paged: within
+    1e-4 of plain, two launches bit-identical."""
+    spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda, heads=ZAMBA_HKV,
+                            dim=ZAMBA_D)
+    if paged:
+        c = _paged(c, spec, cuda)
+    q = torch.randn((4, ZAMBA_HKV * ZAMBA_G, ZAMBA_D), device=cuda)
+    args = _args(c, torch.clamp(c.n_flushed, max=spec.n_blocks))
+    args += (c.page_tab,) if paged else ()
+    kw = dict(tile=spec.impl.tile_decode(spec, ZAMBA_D), block_size=64)
+    runtime.reset_launches()
+    got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
+    assert sum(runtime.launches.values()) == 1
+    want = fused_kv_attn.plain(q, *args, **kw)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, fused_kv_attn.fused_cache_attention(q, *args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 15), (4, 16)])
+def test_store_kernel_multi_block_at_zamba_shape(B, n, cuda):
+    """The full-length prefill's Store call (B 1, a 1000-token prompt's 15
+    blocks) and the lockstep engine's (B 4, 16 blocks), float32 blocks at
+    head_dim 112: bit-exact against plain, one launch."""
+    spec, c = _filled_cache("packed", [0] * B, [0] * B, cuda, heads=ZAMBA_HKV, dim=ZAMBA_D)
+    kb = torch.randn((B, ZAMBA_HKV, n, 64, ZAMBA_D), device=cuda)
+    vb = torch.randn((B, ZAMBA_HKV, n, 64, ZAMBA_D), device=cuda)
+    slots = torch.arange(n, dtype=torch.int32, device=cuda)[None].repeat(B, 1)
+    names = ("k_store", "k_min", "k_step", "v_store", "v_min", "v_step")
+    a = [getattr(c, f).clone() for f in names]
+    b = [getattr(c, f).clone() for f in names]
+    kw = dict(bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
+              rel_scale_v=spec.rel_scale_v, kivi=False)
+    runtime.reset_launches()
+    pack_encode.pack_encode(kb, vb, slots, *a, **kw)
+    assert runtime.launches["pack_encode"] == 1
+    pack_encode.pack_encode_plain(kb, vb, slots, *b, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                           y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+
+
+@pytest.mark.cuda
+def test_hybrid_and_ssm_servers_on_card(cuda):
+    """The zamba2 smoke model served dense and paged (a pool that preempts)
+    on the card: equal tokens; each admission's full-length prefill
+    launches the Store once a KV cache, and decode runs the Fetch.  The
+    mamba2 smoke model launches no kernel."""
+    from repro_torch.models import model as TM
+    from repro_torch.models import registry as TR
+    from repro_torch.serve import scheduler as TS
+
+    cfg = TR.get_smoke_config("zamba2_7b")
+    params = TM.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (37, 21, 53, 16)]
+    news = (10, 14, 6, 9)
+    page_b = sum(TP.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim)
+                 for s in TM.cache_specs(cfg, 128))
+    out = {}
+    for mode, extra in (("dense", {}), ("paged", {"pool_hbm_bytes": 10 * page_b})):
+        srv = TS.Server(cfg, params, TS.ServerConfig(max_slots=2, max_seq=128, cache_mode=mode,
+                                                     attn_backend="fused", **extra))
+        hs = [srv.submit(TS.Request(prompt=p, max_new_tokens=n)) for p, n in zip(prompts, news)]
+        runtime.reset_launches()
+        srv.run()
+        out[mode] = ([h.result().tokens.tolist() for h in hs], dict(runtime.launches),
+                     srv.preemptions)
+    assert out["paged"][0] == out["dense"][0]
+    assert out["paged"][2] >= 1
+    L = TM.n_cache_layers(cfg)
+    assert out["dense"][1]["fused_kv_attn"] > 0 and out["paged"][1]["fused_kv_attn_paged"] > 0
+    assert out["dense"][1]["pack_encode"] % L == 0 and out["dense"][1]["pack_encode"] > 0
+
+    cfg = TR.get_smoke_config("mamba2_1_3b")
+    params = TM.init_params(cfg, seed=0, device="cuda")
+    srv = TS.Server(cfg, params, TS.ServerConfig(max_slots=2, max_seq=128))
+    hs = [srv.submit(TS.Request(prompt=p, max_new_tokens=5)) for p in prompts[:3]]
+    runtime.reset_launches()
+    srv.run()
+    assert [len(h.result().tokens) for h in hs] == [5, 5, 5]
+    assert not any(runtime.launches.values())
 
 
 @pytest.mark.cuda

@@ -25,19 +25,19 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jax = pytest.importorskip("jax")
 
-from repro.models import model as JM  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.serve import faults as JF  # noqa: E402
 from repro.serve import scheduler as JS  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import pool as TP  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.serve.faults import (FAULT_SITES, FaultPlan,  # noqa: E402
                                       InvariantViolation, QueueFull, ServeError)
 from repro_torch.serve.scheduler import Request, Server, ServerConfig  # noqa: E402
+import test_torch_shared as cached  # noqa: E402
 
 # A failure prints this seed; exporting it replays the same schedule.
 CHAOS_SEED = int(os.environ.get("REPRO_CHAOS_SEED", "20260808"))
@@ -110,8 +110,7 @@ def setup():
                                cache_block=8)
     tcfg = dataclasses.replace(TR.get_smoke_config("yi_6b"), cache_layout="packed",
                                cache_block=8)
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    jp, tp = cached.params(jcfg)
     rng = np.random.default_rng(3)
     shared = rng.integers(0, tcfg.vocab_size, 16).astype(np.int32)
     prompts = [np.concatenate([shared, rng.integers(0, tcfg.vocab_size, L).astype(np.int32)])

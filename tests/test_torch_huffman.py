@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -37,10 +38,8 @@ from repro.kernels import ops as JO  # noqa: E402
 from repro.kernels import ref as JR  # noqa: E402
 from repro.kernels.huffman_decode import (huffman_attn_scores_pallas,  # noqa: E402
                                           huffman_decode_pallas)
-from repro.models import model as JM  # noqa: E402
 from repro.models import registry as JReg  # noqa: E402
 from repro.serve import scheduler as JS  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import cache as TC  # noqa: E402
 from repro_torch.core import huffman as TH  # noqa: E402
 from repro_torch.core import layouts as TL  # noqa: E402
@@ -48,6 +47,7 @@ from repro_torch.kernels import fused_kv_attn, ops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
 from repro_torch.models import registry as TReg  # noqa: E402
 from repro_torch.serve import scheduler as TS  # noqa: E402
+import test_torch_shared as cached  # noqa: E402
 
 
 def _codes(rng, skew, shape):
@@ -325,8 +325,7 @@ def test_server_matches_reference_server_huffman():
     memory report names the layout and holds the reference's bytes."""
     jcfg = dataclasses.replace(JReg.get_smoke_config("yi_6b"), cache_layout="huffman")
     tcfg = dataclasses.replace(TReg.get_smoke_config("yi_6b"), cache_layout="huffman")
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    jp, tp = cached.params(jcfg)
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, tcfg.vocab_size, 17).astype(np.int32) for _ in range(3)]
     jsrv = JS.Server(jcfg, jp, JS.ServerConfig(max_slots=2, max_seq=256), q_chunk=32,

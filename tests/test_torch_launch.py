@@ -10,7 +10,8 @@ import json
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 
 from repro_torch import api  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
@@ -83,13 +84,16 @@ def test_cli_serves_and_exports(name, tmp_path, capsys):
         assert f.exists() and f.with_suffix(".prom").read_text().startswith("# TYPE kvcomp_")
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "mixtral_8x22b"])
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "mixtral_8x22b", "zamba2_7b"])
 def test_cli_serves_the_moe_archs(arch, capsys):
-    """``--arch`` of the MoE family serves at smoke width, with the tokens
-    ``api.serve`` gives on the same workload."""
+    """``--arch`` of the MoE and hybrid families serves at smoke width, with
+    the tokens ``api.serve`` gives on the same workload (the hybrid through
+    the full-length admission)."""
     argv = [a if a != "yi_6b" else arch for a in BASE]
     results = launch.main(argv)
-    assert "serve[dense]" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "serve[dense]" in out
+    assert ("prefill[solo]" in out) == (arch == "zamba2_7b")
     assert [r.tokens.tolist() for r in results] == _expected_tokens(
         "packed", "off", {"cache_mode": "dense"}, arch=arch)
 

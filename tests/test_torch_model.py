@@ -15,16 +15,17 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import policy as JP  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import policy as TP  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
+import test_torch_shared as cached  # noqa: E402
 
 ATOL = 1e-3
 
@@ -53,8 +54,7 @@ def test_prefill_chunk_and_decode_step_match_reference(layout, extra):
         textra["cache_overrides"] = _overrides(TP)
     jcfg = dataclasses.replace(JR.get_smoke_config("yi_6b"), cache_layout=layout, **jextra)
     tcfg = dataclasses.replace(TR.get_smoke_config("yi_6b"), cache_layout=layout, **textra)
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    jp, tp = cached.params(jcfg)
     toks = np.random.default_rng(1).integers(0, tcfg.vocab_size, 44).astype(np.int32)
     js = JM.init_decode_state(jcfg, 1, 128)
     ts = TM.init_decode_state(tcfg, 1, 128, device="cpu")
@@ -78,8 +78,7 @@ def test_prefill_chunk_and_decode_step_match_reference(layout, extra):
 def test_params_from_jax_shapes_and_count():
     jcfg = JR.get_smoke_config("yi_6b")
     tcfg = TR.get_smoke_config("yi_6b")
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    jp, tp = cached.params(jcfg)
     fresh = TM.init_params(tcfg, seed=0, device="cpu")
 
     def leaves(t):

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -42,11 +43,11 @@ from repro.models import model as JM  # noqa: E402
 from repro.models import moe as JMo  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.serve import scheduler as JS  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import moe as TMo  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.serve import scheduler as TS  # noqa: E402
+import test_torch_shared as cached  # noqa: E402
 
 ATOL = 1e-3
 MARGIN = 1e-5
@@ -55,8 +56,7 @@ MARGIN = 1e-5
 def _pair(arch, **kw):
     jcfg = dataclasses.replace(JR.get_smoke_config(arch), **kw)
     tcfg = dataclasses.replace(TR.get_smoke_config(arch), **kw)
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, tcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    return (jcfg, tcfg, *cached.params(jcfg))
 
 
 # ---------------------------------------------------------------------------

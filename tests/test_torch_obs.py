@@ -19,6 +19,7 @@ on the CPU:
 """
 
 import dataclasses
+import functools
 import json
 import zlib
 
@@ -26,15 +27,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jax = pytest.importorskip("jax")
 
 from repro import obs as jobs  # noqa: E402
-from repro.models import model as JM  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.serve import faults as JF  # noqa: E402
 from repro.serve import scheduler as JS  # noqa: E402
 from repro_torch import obs  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import pool as TP  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
@@ -43,6 +43,7 @@ from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry  
 from repro_torch.obs.trace import EventTrace  # noqa: E402
 from repro_torch.serve.faults import FAULT_SITES, FaultPlan  # noqa: E402
 from repro_torch.serve.scheduler import Request, Server, ServerConfig  # noqa: E402
+import test_torch_shared as cached  # noqa: E402
 
 # The chaos soak's seed (tests/test_torch_faults.py).
 CHAOS_SEED = 20260808
@@ -180,19 +181,23 @@ def test_request_timings_and_chrome_export_equal_reference():
 
 @pytest.fixture(scope="module")
 def setup():
+    return _setup()
+
+
+@functools.lru_cache(maxsize=None)
+def _setup():
     jcfg = dataclasses.replace(JR.get_smoke_config("yi_6b"), cache_layout="packed",
                                cache_block=8)
     tcfg = dataclasses.replace(TR.get_smoke_config("yi_6b"), cache_layout="packed",
                                cache_block=8)
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    jp, tp = cached.params(jcfg)
     rng = np.random.default_rng(3)
     shared = rng.integers(0, tcfg.vocab_size, 16).astype(np.int32)
     prompts = [np.concatenate([shared, rng.integers(0, tcfg.vocab_size, L).astype(np.int32)])
                for L in LENS]
     page_b = sum(TP.page_nbytes(s, tcfg.n_kv_heads, tcfg.resolved_head_dim)
                  for s in TM.cache_specs(tcfg, 128))
-    return jcfg, tcfg, jp, tp, prompts, page_b
+    return jcfg, tcfg, jp, tp, tuple(prompts), page_b
 
 
 def _config(name, page_b):
@@ -225,8 +230,13 @@ def _serve(make, request, prompts, news):
 @pytest.fixture(scope="module")
 def runs(setup):
     """Per configuration: the reference Server under trace "full", and the
-    port's under "events" and "full"."""
-    jcfg, tcfg, jp, tp, prompts, page_b = setup
+    port's under "events" and "full"; built once a test process."""
+    return _runs()
+
+
+@functools.lru_cache(maxsize=None)
+def _runs():
+    jcfg, tcfg, jp, tp, prompts, page_b = _setup()
     out = {}
     for name in CONFIGS:
         kw, rates, news = _config(name, page_b)

@@ -24,22 +24,22 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import cache as JC  # noqa: E402
 from repro.core import pool as JP  # noqa: E402
 from repro.kernels import ops as JO  # noqa: E402
-from repro.models import model as JM  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.serve import scheduler as JS  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import cache as TC  # noqa: E402
 from repro_torch.core import pool as TP  # noqa: E402
 from repro_torch.kernels import fused_kv_attn  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.serve import scheduler as TS  # noqa: E402
+import test_torch_shared as cached  # noqa: E402
 
 LAYOUTS = ["raw", "packed", "kivi", "huffman"]
 
@@ -303,8 +303,7 @@ NEWS = (3, 9, 5, 2, 7)
 def setup():
     jcfg = dataclasses.replace(JR.get_smoke_config("yi_6b"), cache_block=8)
     tcfg = dataclasses.replace(TR.get_smoke_config("yi_6b"), cache_block=8)
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    jp, tp = cached.params(jcfg)
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, tcfg.vocab_size, L).astype(np.int32) for L in LENS]
     return jcfg, tcfg, jp, tp, prompts

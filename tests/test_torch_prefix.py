@@ -18,11 +18,13 @@ One reference run per configuration, shared through module fixtures.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores; intra-op threads only oversubscribe them
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -32,13 +34,13 @@ from repro.models import model as JM  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.serve import prefix as JX  # noqa: E402
 from repro.serve import scheduler as JS  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import cache as TC  # noqa: E402
 from repro_torch.core import pool as TP  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.serve import prefix as TX  # noqa: E402
 from repro_torch.serve import scheduler as TS  # noqa: E402
+import test_torch_shared as cached  # noqa: E402
 
 
 def bits_of(x):
@@ -246,12 +248,16 @@ def test_gather_pages_bit_exact(layout, rng):
 
 @pytest.fixture(scope="module")
 def setup():
+    return _setup()
+
+
+@functools.lru_cache(maxsize=None)
+def _setup():
     jcfg = dataclasses.replace(JR.get_smoke_config("yi_6b"), cache_layout="packed",
                                cache_block=8)
     tcfg = dataclasses.replace(TR.get_smoke_config("yi_6b"), cache_layout="packed",
                                cache_block=8)
-    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    jp, tp = cached.params(jcfg)
     return jcfg, tcfg, jp, tp
 
 
@@ -306,8 +312,13 @@ def _same_stats(jsrv, tsrv):
 @pytest.fixture(scope="module")
 def reuse(setup):
     """Three requests sharing a 3-block prefix; the reference runs once a
-    layout (prefix on)."""
-    jcfg, tcfg, jp, _ = setup
+    layout (prefix on), once a test process."""
+    return _reuse()
+
+
+@functools.lru_cache(maxsize=None)
+def _reuse():
+    jcfg, tcfg, jp, _ = _setup()
     reqs = _requests(tcfg, 3, 24, (1, 2, 3), 6)
     out = {}
     for layout in ("packed", "huffman"):
