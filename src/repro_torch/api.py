@@ -82,10 +82,11 @@ def serve(cfg, params, *, max_slots: int = 8, max_seq: int = 4096,
     and the request lifecycle (``max_requeues``, ``max_pending``,
     ``backpressure``, ``default_deadline_s``, ``faults``, ``audit_every``).
     ``mesh`` belongs to a later slice of the port and raises
-    ``NotImplementedError`` unless None.  ``q_chunk`` / ``kv_chunk`` size the
-    full-length prefill that admits the ssm and hybrid families (the query
-    block of ``attention.flash_attention``; ``kv_chunk`` is accepted for the
-    reference's signature and never splits a key range).
+    ``NotImplementedError`` unless None.  ``q_chunk`` sizes the query block
+    of the full-length prefill that admits the ssm and hybrid families
+    (``attention.flash_attention``); ``kv_chunk`` is accepted and validated
+    for the reference's signature and changes nothing here, since a query
+    block attends its whole key range in one product.
     """
     if q_chunk < 1 or kv_chunk < 1:
         raise ValueError(f"q_chunk and kv_chunk must be >= 1, got {q_chunk}, {kv_chunk}")
@@ -106,7 +107,7 @@ def serve(cfg, params, *, max_slots: int = 8, max_seq: int = 4096,
                                default_deadline_s=default_deadline_s,
                                faults=faults,
                                audit_every=audit_every),
-                  device=device, q_chunk=q_chunk, kv_chunk=kv_chunk)
+                  device=device, q_chunk=q_chunk)
 
 
 def available_layouts() -> tuple[str, ...]:

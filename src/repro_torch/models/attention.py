@@ -56,7 +56,7 @@ NEG = -1e9
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                    window: int | None = None, q_chunk: int = 512, kv_chunk: int = 512,
+                    window: int | None = None, q_chunk: int = 512,
                     scale: float | None = None) -> torch.Tensor:
     """Full-sequence attention.  q: [B, S, H, Dh]; k, v: [B, S, Hkv, Dh]
     (GQA broadcast inside); causal and sliding-window masks as the
@@ -68,9 +68,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     Here the queries go in blocks of ``q_chunk`` whatever S is, each block
     against its whole visible key range in one masked product and one
     softmax, which bounds the scores at O(q_chunk·S) a head: a few large
-    plain products.  ``kv_chunk`` is accepted for the reference's signature;
-    the key range of a block is never split.  Float32 throughout; equal to
-    the reference within float32 rounding (tests/test_torch_ssm.py)."""
+    plain products.  Float32 throughout; equal to the reference within
+    float32 rounding (tests/test_torch_ssm.py)."""
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -99,7 +98,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 
 def attn_block_prefill(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                       spec: kvcache.CacheSpec, q_chunk: int = 512, kv_chunk: int = 512):
+                       spec: kvcache.CacheSpec, q_chunk: int = 512):
     """Full-length prefill of one attention block: attend the prompt in
     full, and build this layer's compressed cache from its K/V in one
     Store call (``cache.prefill``: every whole block of the prompt, the
@@ -107,7 +106,7 @@ def attn_block_prefill(params, cfg: ModelConfig, x: torch.Tensor, positions: tor
     h = layers.rms_norm(x, params["ln_attn"], cfg.norm_eps)
     q, k, v = qkv_project(params["attn"], cfg, h, positions)
     o = flash_attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
-                        window=cfg.sliding_window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+                        window=cfg.sliding_window, q_chunk=q_chunk)
     cache = kvcache.prefill(spec, k.transpose(1, 2), v.transpose(1, 2))
     return x + out_project(params["attn"], o), cache
 

@@ -270,22 +270,14 @@ def _ffn_block(block_p, cfg, x):
     return x + layers.mlp(block_p["mlp"], h)
 
 
-def _embed_input(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    if cfg.input_mode == "tokens":
-        return layers.embed_tokens(params["emb"], batch["tokens"])
-    return batch["embeddings"]  # audio/vlm frontend stub: precomputed
-
-
 def _shared_block_tail(params, cfg: ModelConfig, x):
     """The hybrid's weight-shared block after its attention: the MLP."""
     p = params["attn_shared"]
     return x + layers.mlp(p["mlp"], layers.rms_norm(x, p["ln_mlp"], cfg.norm_eps))
 
 
-def prefill(params, cfg: ModelConfig, batch, max_seq: int,
-            q_chunk: int = 512, kv_chunk: int = 512):
-    """Process a whole prompt: ``batch`` {"tokens": int [B, S]} (or
-    {"embeddings": [B, S, d]} for ``input_mode="embeddings"``).  Returns
+def prefill(params, cfg: ModelConfig, batch, max_seq: int, q_chunk: int = 512):
+    """Process a whole prompt: ``batch`` {"tokens": int [B, S]}.  Returns
     (logits [B, S, V], a fresh batch-B decode state): every attention
     layer's compressed cache built from the prompt's K/V in one Store call
     (whole blocks; the remainder in the raw buffer), every Mamba2 block's
@@ -293,15 +285,15 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int,
     paged spec); the scheduler splices them into its live state."""
     _check_family(cfg)
     _check_nonuniform_supported(cfg)
-    x = _embed_input(params, cfg, batch)
+    x = layers.embed_tokens(params["emb"], batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
     state = {}
     if cfg.family in ("dense", "moe"):
         caches = []
         for block_p, spec in zip(params["blocks"], cache_specs(cfg, max_seq)):
-            x, cache = attention.attn_block_prefill(block_p, cfg, x, positions, spec, **kw)
+            x, cache = attention.attn_block_prefill(block_p, cfg, x, positions, spec,
+                                                    q_chunk=q_chunk)
             x = _ffn_block(block_p, cfg, x)
             caches.append(cache)
         state["kv"] = caches
@@ -319,7 +311,7 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int,
                 x, st = ssm.mamba_block_prefill(block_p, cfg, x)
                 states.append(st)
             x, cache = attention.attn_block_prefill(params["attn_shared"], cfg, x,
-                                                    positions, spec, **kw)
+                                                    positions, spec, q_chunk=q_chunk)
             x = _shared_block_tail(params, cfg, x)
             state["ssm"].append(states)
             state["kv"].append(cache)
@@ -333,16 +325,12 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int,
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, position, state):
-    """One decode step.  tokens: int [B] (or [B, d] embeddings); position:
-    int [B] (each row's current length; a scalar broadcasts).  Returns
-    (logits [B, V], state)."""
+    """One decode step.  tokens: int [B]; position: int [B] (each row's
+    current length; a scalar broadcasts).  Returns (logits [B, V], state)."""
     position = torch.as_tensor(position, dtype=torch.int32, device=tokens.device)
     if position.dim() == 0:
         position = position.expand(tokens.shape[0])
-    if cfg.input_mode == "tokens":
-        x = layers.embed_tokens(params["emb"], tokens[:, None])
-    else:
-        x = tokens[:, None, :]
+    x = layers.embed_tokens(params["emb"], tokens[:, None])
     if cfg.family in ("dense", "moe"):
         for block_p, cache in zip(params["blocks"], state["kv"]):
             x, _ = attention.attn_block_decode(block_p, cfg, x, position, cache)

@@ -51,14 +51,14 @@ class Engine:
     accepted and unused."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, q_chunk: int = 512,
-                 kv_chunk: int = 512, device="cuda"):
+                 device="cuda"):
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.server = Server(
             cfg, params,
             ServerConfig(max_slots=ecfg.max_batch, max_seq=ecfg.max_seq,
                          greedy=ecfg.greedy, pad_id=ecfg.pad_id,
                          attn_backend=ecfg.attn_backend),
-            device=device, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            device=device, q_chunk=q_chunk)
 
     def generate(self, reqs: list[Request]) -> list[Result]:
         handles = [self.server.submit(r) for r in reqs]
@@ -69,10 +69,10 @@ class LockstepEngine:
     """The legacy bucket batcher (the benchmark baseline only)."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, q_chunk: int = 512,
-                 kv_chunk: int = 512, device="cuda"):
+                 device="cuda"):
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         self.device = resolve_device(device)
-        self._chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
+        self._q_chunk = q_chunk
 
     def _buckets(self, reqs: list[Request]) -> dict[int, list[int]]:
         out: dict[int, list[int]] = {}
@@ -99,7 +99,7 @@ class LockstepEngine:
         t0 = time.monotonic()
         logits, state = M.prefill(self.params, self.cfg,
                                   {"tokens": torch.as_tensor(prompts, device=self.device)},
-                                  self.ecfg.max_seq, **self._chunks)
+                                  self.ecfg.max_seq, q_chunk=self._q_chunk)
         cur = torch.argmax(logits[:, -1], dim=-1)
         cur_host = cur.cpu().numpy()  # waits for the prefill
         t1 = time.monotonic()

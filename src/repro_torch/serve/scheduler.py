@@ -356,7 +356,7 @@ class Server:
     """Slot-based continuous-batching server over the compressed KV cache."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServerConfig | None = None,
-                 device="cuda", q_chunk: int = 512, kv_chunk: int = 512):
+                 device="cuda", q_chunk: int = 512):
         scfg = scfg if scfg is not None else ServerConfig()
         if not scfg.greedy:
             raise NotImplementedError("only greedy decoding is served for now")
@@ -374,13 +374,18 @@ class Server:
             cfg = dataclasses.replace(cfg, cache_mode=scfg.cache_mode)
         if cfg.cache_mode not in ("dense", "paged"):
             raise ValueError(f"unknown cache_mode {cfg.cache_mode!r}")
+        if cfg.encoder_only:
+            # The reference's Server admits such a request and fails its
+            # first decode step with an IndexError; refuse it up front, with
+            # the same type.
+            raise IndexError(f"{cfg.name} is encoder-only: it has no decode step to serve")
         self.paged = cfg.cache_mode == "paged"
         if self.paged and M.n_cache_layers(cfg) == 0:
             raise ValueError(
                 "paged cache mode needs attention KV caches "
                 f"(family {cfg.family!r} has none)")
         self.cfg, self.params, self.scfg = cfg, params, scfg
-        self._q_chunk, self._kv_chunk = q_chunk, kv_chunk
+        self._q_chunk = q_chunk
         B = scfg.max_slots
         self._slots: list[Handle | None] = [None] * B
         self._queue: collections.deque[Handle] = collections.deque()
@@ -727,7 +732,7 @@ class Server:
         if self._tr is not None:
             self._tr.emit("admit", req=handle.id, t=t0, row=row)
         logits, solo = M.prefill(self.params, self.cfg, {"tokens": prompt}, self.scfg.max_seq,
-                                 q_chunk=self._q_chunk, kv_chunk=self._kv_chunk)
+                                 q_chunk=self._q_chunk)
         first = int(torch.argmax(logits[0, -1]))
         t1 = time.monotonic()
         # Summed over preemption replays; t_start keeps the first admission.

@@ -9,7 +9,9 @@ reference on the CPU, through ``params_from_jax`` (identical weights):
 * the ``Server``: greedy tokens, ``stats()["prefill"]`` and the lifecycle
   counters equal the reference Server's for zamba2 smoke dense, paged, and
   paged in a pool that preempts (replay through the full-length prefill),
-  and for mamba2 smoke dense; every reference run happens once;
+  and for mamba2 smoke dense; each reference run happens once a process,
+  and the reference's dense run also holds the paged run with an ample
+  pool, which never preempts;
 * ``serve.engine.LockstepEngine``'s tokens equal the reference's (a
   batched, left-padded full-length prefill, then lockstep decode);
 * ``params_from_jax`` shapes and ``param_count`` for the three configs the
@@ -23,6 +25,7 @@ the neighbouring bf16); Mamba2 states within 1e-4 absolute.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -116,45 +119,68 @@ def _page_bytes(cfg, max_seq):
                for s in JM.cache_specs(cfg, max_seq))
 
 
-# (arch, prompt lengths, new tokens, server options); the tight pool of 10
-# pages preempts once on these requests (the reference's count is asserted).
+# (arch, prompt lengths, new tokens, server options, the reference run it is
+# held against); the tight pool of 10 pages preempts once on these requests
+# (the reference's count is asserted).  The ample pool never preempts, so its
+# tokens and prefill/lifecycle counters are the reference's dense run's, and
+# that run serves both cases.
 SERVES = {
-    "zamba2-dense": ("zamba2_7b", (37, 21, 53, 16), (10, 14, 6, 9), {}),
+    "zamba2-dense": ("zamba2_7b", (37, 21, 53, 16), (10, 14, 6, 9), {}, "zamba2-dense"),
     "zamba2-paged": ("zamba2_7b", (37, 21, 53, 16), (10, 14, 6, 9),
-                     {"cache_mode": "paged"}),
+                     {"cache_mode": "paged"}, "zamba2-dense"),
     "zamba2-paged-preempts": ("zamba2_7b", (37, 21, 53, 16), (10, 14, 6, 9),
-                              {"cache_mode": "paged", "pool_pages": 10}),
-    "mamba2-dense": ("mamba2_1_3b", (37, 21, 53), (10, 14, 6), {}),
+                              {"cache_mode": "paged", "pool_pages": 10},
+                              "zamba2-paged-preempts"),
+    "mamba2-dense": ("mamba2_1_3b", (37, 21, 53), (10, 14, 6), {}, "mamba2-dense"),
 }
+
+
+def _prompts(case):
+    arch, lens, news, opts, _ = SERVES[case]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, TR.get_smoke_config(arch).vocab_size, n).astype(np.int32)
+               for n in lens]
+    opts = dict(opts)
+    if "pool_pages" in opts:
+        opts["pool_hbm_bytes"] = opts.pop("pool_pages") * _page_bytes(
+            JR.get_smoke_config(arch), 128)
+    return arch, prompts, news, opts
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_serve(case):
+    """The reference Server's tokens, stats and preemptions on ``case``'s
+    requests, once a process."""
+    arch, prompts, news, opts = _prompts(case)
+    jcfg, _, jp, _ = _pair(arch)
+    jsrv = JS.Server(jcfg, jp, JS.ServerConfig(max_slots=2, max_seq=128, **opts))
+    rj = [h.result() for h in [jsrv.submit(JS.Request(prompt=p, max_new_tokens=n))
+                               for p, n in zip(prompts, news)]]
+    return [r.tokens.tolist() for r in rj], jsrv.stats(), jsrv.preemptions
 
 
 @pytest.mark.parametrize("case", list(SERVES))
 def test_server_matches_reference_server(case):
-    arch, lens, news, opts = SERVES[case]
-    jcfg, tcfg, jp, tp = _pair(arch)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32) for n in lens]
-    opts = dict(opts)
-    if "pool_pages" in opts:
-        opts["pool_hbm_bytes"] = opts.pop("pool_pages") * _page_bytes(jcfg, 128)
-    jsrv = JS.Server(jcfg, jp, JS.ServerConfig(max_slots=2, max_seq=128, **opts))
+    arch, prompts, news, opts = _prompts(case)
+    _, tcfg, _, tp = _pair(arch)
+    tokens, sj, preemptions = _reference_serve(SERVES[case][4])
     tsrv = TS.Server(tcfg, tp, TS.ServerConfig(max_slots=2, max_seq=128, **opts), device="cpu")
-    rj = [h.result() for h in [jsrv.submit(JS.Request(prompt=p, max_new_tokens=n))
-                               for p, n in zip(prompts, news)]]
     rt = [h.result() for h in [tsrv.submit(TS.Request(prompt=p, max_new_tokens=n))
                                for p, n in zip(prompts, news)]]
-    assert [r.tokens.tolist() for r in rt] == [r.tokens.tolist() for r in rj]
+    assert [r.tokens.tolist() for r in rt] == tokens
     assert [len(r.tokens) for r in rt] == list(news)
-    sj, st = jsrv.stats(), tsrv.stats()
+    st = tsrv.stats()
     assert st["prefill"] == sj["prefill"]
     assert st["prefill"]["mode"] == "solo" and st["prefill"]["stalled_decode_steps"] > 0
     assert st["lifecycle"] == sj["lifecycle"]
-    assert tsrv.preemptions == jsrv.preemptions
+    assert tsrv.preemptions == preemptions
     if case.endswith("preempts"):
         assert tsrv.preemptions > 0
     if "pool" in st:
-        assert {k: st["pool"][k] for k in ("alloc_pages", "freed_pages", "high_water_pages")} \
-            == {k: sj["pool"][k] for k in ("alloc_pages", "freed_pages", "high_water_pages")}
+        pool = {k: st["pool"][k] for k in ("alloc_pages", "freed_pages", "high_water_pages")}
+        assert pool["alloc_pages"] == pool["freed_pages"] > 0  # every page back after the drain
+        if "pool" in sj:
+            assert pool == {k: sj["pool"][k] for k in pool}
     mem = tsrv.memory_report()
     assert mem["total_bytes"] > mem["kv_bytes"] >= 0
 
@@ -203,8 +229,9 @@ def test_params_from_jax_shapes_and_count(arch):
 
 def test_reference_refusals():
     """Paged mode needs KV caches; the prefix cache needs a pure-KV state;
-    hubert_xlarge (encoder-only, embeddings in) fails its first decode step
-    with the reference's IndexError."""
+    hubert_xlarge (encoder-only, embeddings in) fails the reference Server's
+    first decode step with an IndexError, and the port's Server refuses it
+    up front with the same type."""
     jcfg, tcfg, jp, tp = _pair("mamba2_1_3b")
     for Srv, Cfg, cfg, p, kw in ((JS.Server, JS.ServerConfig, jcfg, jp, {}),
                                  (TS.Server, TS.ServerConfig, tcfg, tp, {"device": "cpu"})):
@@ -220,6 +247,5 @@ def test_reference_refusals():
     with pytest.raises(IndexError):
         JS.Server(jcfg, jp, JS.ServerConfig(max_slots=2, max_seq=64)).submit(
             JS.Request(prompt=prompt, max_new_tokens=3)).result()
-    with pytest.raises(IndexError):
-        TS.Server(tcfg, tp, TS.ServerConfig(max_slots=2, max_seq=64), device="cpu").submit(
-            TS.Request(prompt=prompt, max_new_tokens=3)).result()
+    with pytest.raises(IndexError, match="encoder-only"):
+        TS.Server(tcfg, tp, TS.ServerConfig(max_slots=2, max_seq=64), device="cpu")

@@ -98,6 +98,16 @@ def test_cli_serves_the_moe_archs(arch, capsys):
         "packed", "off", {"cache_mode": "dense"}, arch=arch)
 
 
+def test_cli_refuses_the_encoder_only_arch(capsys):
+    """``--arch hubert_xlarge`` (encoder-only) is refused before anything is
+    served, with the IndexError its first decode step raises in the
+    reference."""
+    argv = [a if a != "yi_6b" else "hubert_xlarge" for a in BASE]
+    with pytest.raises(IndexError, match="encoder-only"):
+        launch.main(argv)
+    assert "serve[" not in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv,what", [
     (["--mesh", "1,1"], "later slice of the port (multi-GPU sharded serving)"),
     (["--span-tokens", "64"], "--span-tokens is not served"),
