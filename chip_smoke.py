@@ -5,8 +5,9 @@
     python3 chip_smoke.py --split-sweep   # phases 1, 2, then the Fetch at S = 1, 2, 4
     python3 chip_smoke.py --walk-parent DIR   # phases 1, 2, then DIR's walk kernels vs these
 
-Phases, in the order they run (11 after 4, 12 after 9, 13 to 17 after
-12, times last); any failure exits non-zero before the result lines:
+Phases, in the order they run (11 after 4, 12 after 9, 13 to 15 after
+12, 18 after 15, 16 and 17 after 18, 19 after 17, times last); any failure
+exits non-zero before the result lines:
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the three hand-written kernel libraries from
@@ -170,6 +171,38 @@ Phases, in the order they run (11 after 4, 12 after 9, 13 to 17 after
    Mamba2-1.3B (48 layers, 5.4 GB): the same prompts batched == solo, no
    kernel launched (no KV cache), and paged mode refused with the
    reference's error.  Phase 17's launches join the JSON line's counts.
+18. The per-layer cache policy, on phase 5's weights: (a) phase 3's checks
+   at block size 32, at Yi-6B's shapes and at the tiny LM's (Hkv 4, G 2,
+   D 32); (b) layers 0 to 15 at block 64, 16 to 31 at block 32, 24 to 31
+   through the plain blockwise scan with a 256-token span: phase 5's
+   requests batched, then each alone, with identical greedy tokens; every
+   pure decode step launches the Fetch 24 times and the Store 32 times,
+   every admission is one full-length prefill (32 Store launches, no
+   chunk), and a paged server refuses the policy with the reference's
+   ValueError; (c) the Fetch (packed) and the Store at block size 32
+   against their plain versions, single calls, with their ms and bounds, at
+   Yi-6B's and the tiny LM's shapes.  Phase 18's launches join the JSON
+   line's counts.
+19. Training, once phase 17's models are freed (every figure beside the
+   card's name and power limit): (a) Qwen3-1.7B at full width and depth
+   (28 layers, tied embeddings, random float32 weights from seed 0) on
+   TextCorpus batches of 4 x 512 tokens: 4 AdamW steps with remat (wall ms,
+   TFLOP/s as 6 x params x tokens over the wall, the last step profiled for
+   device busy ms, peak GiB); then the next step's loss and gradient norm
+   from one state with remat, without, and over 2 microbatches, within
+   LOSS_RTOL and GNORM_RTOL; the state saved as a checkpoint, freed,
+   restored, and the next step's loss equal; (b) Mamba2-1.3B at full width
+   and depth, remat, 2 x 512, 2 steps, every gradient finite; (c)
+   Qwen3-30B-A3B at full width, 2 of 48 layers, 2 x 512, 1 step: its aux
+   loss and the pairs dropped past each expert's capacity; (d) the tiny
+   byte LM (``launch.tiny_lm``) trained for its 300 steps (the loss every 50
+   steps; the last at least MIN_TINY_DROP below the first), then served
+   with every layout as ``examples/serve_compressed_torch.py`` serves it:
+   4 corpus prompts of 64 tokens, 24 new tokens each, 4 slots, max_seq 256;
+   each layout's tokens equal to raw's up to the first difference, its KV
+   bytes a token slot and its decode step's wall ms.  The Fetch runs at
+   T 32, D 32, G 2 in all four layouts.  Phase 19's serving launches join
+   the JSON line's counts.
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
@@ -284,21 +317,21 @@ def bf16_bits(t):
 
 
 def make_cache(layout: str, nb_valid, buf_len, seed: int, hkv: int = HKV, g_: int = G,
-               d_: int = D):
-    """A layer cache of ``hkv`` KV heads and head_dim ``d_`` (Yi-6B's 4 and
-    128 by default) with random contents in every slot, written through the
-    Store kernel (packed layouts) and given per-row lengths, and a q of
-    ``g_`` query heads a KV head."""
+               d_: int = D, t_: int = T):
+    """A layer cache of ``hkv`` KV heads, head_dim ``d_`` and block size
+    ``t_`` (Yi-6B's 4, 128 and 64 by default) with random contents in every
+    slot, written through the Store kernel (packed layouts) and given per-row
+    lengths, and a q of ``g_`` query heads a KV head."""
     import torch
     from repro_torch.core import cache as C
 
     b = len(nb_valid)
-    spec = C.CacheSpec(layout=layout, block_size=T, max_seq=NB * T)
+    spec = C.CacheSpec(layout=layout, block_size=t_, max_seq=NB * t_)
     c = C.init_layer_cache(spec, b, hkv, d_, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    kb = torch.randn((b, hkv, NB, T, d_), generator=g, device="cuda").to(torch.bfloat16)
-    vb = torch.randn((b, hkv, NB, T, d_), generator=g, device="cuda").to(torch.bfloat16)
+    kb = torch.randn((b, hkv, NB, t_, d_), generator=g, device="cuda").to(torch.bfloat16)
+    vb = torch.randn((b, hkv, NB, t_, d_), generator=g, device="cuda").to(torch.bfloat16)
     slots = torch.arange(NB, device="cuda", dtype=torch.int32)[None].expand(b, NB)
     spec.impl.write_blocks(spec, c, slots, kb, vb)
     c.k_buf.copy_(torch.randn(c.k_buf.shape, generator=g, device="cuda"))
@@ -344,7 +377,8 @@ def huffman_slot_bytes(spec, c, nb_valid) -> int:
     import torch
     from repro_torch.core.layouts import unpack_u16_pairs
 
-    tile = spec.impl.tile_decode(spec, D)
+    tile = spec.impl.tile_decode(spec, c.head_dim)
+    T = spec.block_size
     live = (torch.arange(c.k_store.shape[2], device="cuda")[None, :]
             < torch.as_tensor(nb_valid, device="cuda")[:, None])[:, None, :]  # [B, 1, NB]
     words = 0
@@ -355,7 +389,7 @@ def huffman_slot_bytes(spec, c, nb_valid) -> int:
 
 
 def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
-                   cache=None) -> dict:
+                   cache=None, hkv: int = HKV, g_: int = G, d_: int = D) -> dict:
     """Least time for the Fetch work of these inputs: live blocks, valid
     buffer tokens, q in, output out, and the page table when paged (bytes);
     the two products per block and token (ops).  The scales fold into the
@@ -369,6 +403,7 @@ def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
     operations over the TF32 rate; ``f32_ms`` keeps the earlier yardstick,
     the larger of the bytes and the operations over the float32 rate."""
     B = len(nb_valid)
+    HKV, G, D, T = hkv, g_, d_, spec.block_size
     live = HKV * int(sum(nb_valid))
     toks = HKV * int(sum(buf_len))
     if spec.layout == "raw":
@@ -398,7 +433,7 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, 
 
 
 def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None, hkv: int = HKV,
-                          g_: int = G, d_: int = D) -> None:
+                          g_: int = G, d_: int = D, t_: int = T) -> None:
     """The same random blocks stored packed and huffman hold the same codes
     and scales, so the Fetch kernel's outputs must be bit-identical (dense,
     or paged on the same page map when ``holes`` is given)."""
@@ -407,7 +442,8 @@ def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None, hkv: int = H
 
     out = {}
     for layout in ("packed", "huffman"):
-        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=seed, hkv=hkv, g_=g_, d_=d_)
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=seed, hkv=hkv, g_=g_, d_=d_,
+                                t_=t_)
         if holes is not None:
             c = make_paged(c, nb_valid, seed=seed, holes=holes)
         args, kw = fetch_args(spec, c)
@@ -449,20 +485,22 @@ def split_rule_checks(spec, c, q) -> None:
 
 
 def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = None,
-                  d_: int = D, paged: bool = False) -> None:
+                  d_: int = D, paged: bool = False, t_: int = T) -> None:
     """Phase 3 (and 16(c) at Mixtral's ``hkv``, ``g_``; 17(a) at Zamba2's
-    ``hkv``, ``g_``, ``d_``): each kernel against its plain version on the
-    card; ``paged`` adds the paged Fetch on the same caches re-housed in a
+    ``hkv``, ``g_``, ``d_``; 18 at block size ``t_`` 32, at Yi-6B's and the
+    tiny LM's shapes): each kernel against its plain version on the card;
+    ``paged`` adds the paged Fetch on the same caches re-housed in a
     shuffled arena.  The errors go into ``report`` (under ``report[key]``
     when given)."""
     import torch
     from repro_torch.kernels import fused_kv_attn, pack_encode
 
     out = report if key is None else report.setdefault(key, {})
-    nb_valid, buf_len = [64, 37, 1, 0], [0, 63, 17, 5]
+    nb_valid, buf_len = [64, 37, 1, 0], [0, t_ - 1, 17, 5]
     fetch_err = 0.0
     for i, layout in enumerate(("packed", "kivi", "raw", "huffman")):
-        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=i, hkv=hkv, g_=g_, d_=d_)
+        spec, c, q = make_cache(layout, nb_valid, buf_len, seed=i, hkv=hkv, g_=g_, d_=d_,
+                                t_=t_)
         args, kw = fetch_args(spec, c)
         got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
         want = fused_kv_attn.plain(q, *args, **kw)
@@ -498,19 +536,20 @@ def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = N
                                      f"the same blocks ({layout})")
             print(f"  paged fetch {layout:7s} on a shuffled arena bit-identical to dense on "
                   f"the same blocks")
-    same_blocks_identical(nb_valid, buf_len, seed=9, hkv=hkv, g_=g_, d_=d_)
+    same_blocks_identical(nb_valid, buf_len, seed=9, hkv=hkv, g_=g_, d_=d_, t_=t_)
     if paged:
         same_blocks_identical(nb_valid, buf_len, seed=19, holes={(1, 3)}, hkv=hkv, g_=g_,
-                              d_=d_)
+                              d_=d_, t_=t_)
 
     store_err = 0.0
     for layout, dt, n in (("packed", torch.bfloat16, 1), ("kivi", torch.bfloat16, 1),
                           ("packed", torch.float32, 3)):
-        spec, c, _ = make_cache(layout, nb_valid, buf_len, seed=7, hkv=hkv, g_=g_, d_=d_)
+        spec, c, _ = make_cache(layout, nb_valid, buf_len, seed=7, hkv=hkv, g_=g_, d_=d_,
+                                t_=t_)
         g = torch.Generator(device="cuda")
         g.manual_seed(11)
-        kb = torch.randn((B, hkv, n, T, d_), generator=g, device="cuda").to(dt)
-        vb = torch.randn((B, hkv, n, T, d_), generator=g, device="cuda").to(dt)
+        kb = torch.randn((B, hkv, n, t_, d_), generator=g, device="cuda").to(dt)
+        vb = torch.randn((B, hkv, n, t_, d_), generator=g, device="cuda").to(dt)
         slots = torch.tensor([[5 + j for j in range(n)], [NB] * n,
                               [NB - 1 - j for j in range(n)], [j for j in range(n)]],
                              dtype=torch.int32, device="cuda")  # row 1 drops
@@ -2265,6 +2304,399 @@ def phase_hybrid(report: dict) -> None:
     print(f"  phase 17: {time.monotonic() - t_phase:.1f} s [{card}]")
 
 
+# Phase 18: the per-layer cache policy on full-width Yi-6B.  Layers 0 to 15
+# keep phase 5's 64-token blocks; 16 to 31 take 32-token blocks, and 24 to
+# 31 the plain blockwise scan (``attn_backend="xla"``) with a 256-token span.
+POLICY_SMALL_BLOCK = tuple(range(16, 32))
+POLICY_SCAN_LAYERS = tuple(range(24, 32))
+POLICY_SPAN = 256
+# Phase 19: training.  Qwen3-1.7B at full width and depth on 4 x 512 tokens;
+# Mamba2-1.3B on 2 x 512; Qwen3-30B-A3B at full width, 2 of 48 layers, on
+# 2 x 512; then the tiny byte LM, trained and served.
+TRAIN_SEQ = 512
+TRAIN_STEPS = 4
+LOSS_RTOL = 1e-5       # remat on / off, microbatches 1 / 2: float32 sums in other orders
+GNORM_RTOL = 1e-4      # the same for the gradient norm (atomics in the embedding's backward)
+TINY_PROMPT, TINY_NEW, TINY_SLOTS, TINY_MAX_SEQ = 64, 24, 4, 256
+MIN_TINY_DROP = 1.0    # nats the tiny LM's loss must fall over its training
+
+
+def policy_cfg(cfg):
+    """Phase 18's per-layer policy on ``cfg``."""
+    import dataclasses
+
+    from repro_torch.core.policy import LayerOverride
+
+    return dataclasses.replace(cfg, cache_overrides=(
+        LayerOverride(layers=POLICY_SMALL_BLOCK, block_size=32),
+        LayerOverride(layers=POLICY_SCAN_LAYERS, attn_backend="xla", span_tokens=POLICY_SPAN)))
+
+
+def t32_times(report: dict) -> None:
+    """The Fetch (packed, dense) and the Store at block size 32 against
+    their plain versions, single calls, at Yi-6B's shapes (the lengths of
+    phase 18's last decode step) and at the tiny LM's (Hkv 4, G 2, D 32; the
+    lengths of phase 19(d)'s last step): max |kernel - plain|, ms, bound."""
+    import torch
+    from repro_torch.kernels import fused_kv_attn, pack_encode
+
+    rows = {}
+    for name, hkv, g_, d_, lens, new in (
+            ("Yi-6B", HKV, G, D, PROMPT_LENS, NEW_TOKENS),
+            ("tiny LM", 4, 2, 32, (TINY_PROMPT,) * TINY_SLOTS, TINY_NEW)):
+        nb = [(L + new - 1) // 32 for L in lens]
+        bl = [(L + new - 1) % 32 for L in lens]
+        spec, c, q = make_cache("packed", nb, bl, seed=31, hkv=hkv, g_=g_, d_=d_, t_=32)
+        args, kw = fetch_args(spec, c)
+        run = lambda: fused_kv_attn.fused_cache_attention(q, *args, **kw)  # noqa: E731
+        plain = lambda: fused_kv_attn.plain(q, *args, **kw)  # noqa: E731
+        err = float((run() - plain()).abs().max())
+        if not err <= FETCH_ATOL:
+            raise AssertionError(f"Fetch at T 32 ({name}) vs plain: max |err| {err}")
+        ms, plain_ms = timed(run), timed(plain)
+        bd = fetch_bound_ms(spec, nb, bl, hkv=hkv, g_=g_, d_=d_)
+        print(f"  fetch at T 32 ({name}: Hkv {hkv}, G {g_}, D {d_}, B={len(nb)}, nb_valid {nb}, "
+              f"buf_len {bl}): max|kernel-plain| {err:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}), "
+              f"{ms / bd['bound_ms']:.0f}x the bound [{card_line()}]")
+        skw = dict(bits_k=spec.bits_k, bits_v=spec.bits_v, rel_scale_k=spec.rel_scale_k,
+                   rel_scale_v=spec.rel_scale_v, kivi=False)
+        kb, vb = c.k_buf[:, :, None], c.v_buf[:, :, None]
+        slots = (torch.arange(len(nb), dtype=torch.int32, device="cuda") + 40)[:, None]
+        names = ("k_store", "k_min", "k_step", "v_store", "v_min", "v_step")
+        a = [getattr(c, f).clone() for f in names]
+        b = [getattr(c, f).clone() for f in names]
+        pack_encode.pack_encode(kb, vb, slots, *a, **skw)
+        pack_encode.pack_encode_plain(kb, vb, slots, *b, **skw)
+        for f, x, y in zip(names, a, b):
+            if not torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                               y.view(torch.int16) if y.dtype == torch.bfloat16 else y):
+                raise AssertionError(f"Store at T 32 ({name}) vs plain: {f} differs")
+        st = (c.k_store, c.k_min, c.k_step, c.v_store, c.v_min, c.v_step)
+        s_ms = timed(lambda: pack_encode.pack_encode(kb, vb, slots, *st, **skw))
+        s_plain = timed(lambda: pack_encode.pack_encode_plain(kb, vb, slots, *st, **skw))
+        n_val = 2 * len(nb) * hkv * 32 * d_
+        s_bytes = (n_val * 2 + slots.numel() * 4 + len(nb) * hkv * (
+            4 * (spec.words_k(d_) + spec.words_v(d_)) + 2 * 2 * (d_ + 32)))
+        s_bound, s_by = bound(s_bytes, 4 * n_val)
+        print(f"  store at T 32 ({name}, every row flushing, B={len(nb)}): words and bf16 "
+              f"scales bit-exact; kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms, bound "
+              f"{s_bound:.6f} ms ({s_by}), {s_ms / s_bound:.0f}x the bound [{card_line()}]")
+        rows[name] = dict(fetch_err=err, fetch_ms=ms, fetch_plain_ms=plain_ms, **bd,
+                          store_ms=s_ms, store_plain_ms=s_plain, store_bound_ms=s_bound)
+    report["t32_rows"] = rows
+
+
+def phase_policy(report: dict, cfg, params) -> None:
+    """Phase 18: the per-layer cache policy on full-width Yi-6B (phase 5's
+    weights): the kernels at block size 32 against their plain versions,
+    phase 5's requests served batched and solo, and the paged refusal."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import Request, Server, ServerConfig
+
+    print("  (a) the kernels at block size 32: Yi-6B's shapes, then the tiny LM's")
+    phase_kernels(report, key="t32", t_=32)
+    phase_kernels(report, key="t32_tiny", g_=2, d_=32, t_=32)
+    pcfg = policy_cfg(cfg)
+    specs = M.cache_specs(pcfg, 4096)
+    print(f"  (b) policy: blocks {[s.block_size for s in specs]}, backends "
+          f"{[s.attn_backend for s in specs]}, spans {[s.span_tokens for s in specs]}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32) for L in PROMPT_LENS]
+    scfg = ServerConfig(max_slots=B, max_seq=4096, attn_backend="fused")
+    n_fetch = sum(s.attn_backend == "fused" for s in dataclasses.replace(
+        pcfg, attn_backend="fused").compression_policy().layer_specs(cfg.n_layers, max_seq=4096))
+    with prefill_launches() as calls:
+        run = _serve_run(pcfg, params, prompts, scfg, NEW_TOKENS)
+    want = {(("fused_kv_attn", n_fetch), ("pack_encode", cfg.n_layers))}
+    if run["per_step"] != want:
+        raise AssertionError(f"pure decode steps launched {run['per_step']}, not {want}")
+    if run["stats"]["prefill"]["chunks"] or len(calls) != len(prompts) or any(
+            c != {"pack_encode": cfg.n_layers} for c in calls):
+        raise AssertionError(f"admissions: {run['stats']['prefill']['chunks']} chunks, "
+                             f"full-length prefills {calls}")
+    print(f"  every pure decode step: {n_fetch} Fetch and {cfg.n_layers} Store launches; "
+          f"{len(calls)} admissions, each one full-length prefill of {cfg.n_layers} Store "
+          f"launches, no chunk")
+    solo = Server(pcfg, params, scfg)
+    agree = sum(int((solo.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS)).result().tokens
+                     == t).all()) for p, t in zip(prompts, run["tokens"]))
+    print(f"  batched vs solo: {agree}/{len(prompts)} requests with identical greedy tokens")
+    if agree != len(prompts):
+        raise AssertionError("batched != solo under the per-layer policy")
+    del solo
+    try:
+        Server(dataclasses.replace(pcfg, cache_mode="paged"), params, scfg)
+    except ValueError as e:
+        if "uniform block_size" not in str(e):
+            raise
+        print(f"  paged mode refused: {e}")
+    else:
+        raise AssertionError("a paged policy with a block_size override was served")
+    torch.cuda.empty_cache()
+    print("  (c) times at block size 32")
+    t32_times(report)
+    report["policy_launches"] = run["launches"]
+
+
+def _grad_check(grads) -> None:
+    import torch
+
+    ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    if not bool(ok):
+        raise AssertionError("a gradient holds a non-finite value")
+
+
+def _train_step(cfg, scfg, state, batch, check: bool = False):
+    """One training step (``train.step``'s, with the gradients at hand):
+    (state, metrics as floats)."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as S
+
+    params, opt, err = state
+    loss, parts, grads = S.loss_and_grads(cfg, scfg, params, S.to_device(batch, "cuda"))
+    if check:
+        _grad_check(grads)
+    params, opt, m = adamw.update(scfg.opt, tree.unflatten(params, grads), opt, params)
+    return (params, opt, err), {k: float(v) for k, v in {"loss": loss, **parts, **m}.items()}
+
+
+def train_model(arch: str, n_layers: int | None = None):
+    """A registered config at full width (``n_layers`` of its layers when
+    given), float32, with random weights from seed 0."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+
+    full = registry.get_config(arch)
+    cfg = dataclasses.replace(full, dtype="float32", n_layers=n_layers or full.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}; "
+          f"{cfg.param_count() / 1e9:.3f}B float32 params")
+    return cfg, params
+
+
+def phase_train(report: dict) -> None:
+    """Phase 19: training at full width, then the tiny LM trained and
+    served through every layout."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import TextCorpus
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as S
+
+    print("  (a) Qwen3-1.7B at full width and depth")
+    cfg, params = train_model("qwen3_1_7b")
+    data = TextCorpus(seq_len=TRAIN_SEQ, global_batch=4)
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=20)
+    scfg = S.TrainStepConfig(remat=True, q_chunk=TRAIN_SEQ, kv_chunk=TRAIN_SEQ, opt=opt)
+    state = (params, adamw.init(params), None)
+    del params
+    flops = 6 * cfg.param_count() * 4 * TRAIN_SEQ
+    walls = []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if i == TRAIN_STEPS - 1:  # the last step under the profiler: device busy time
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, m = _train_step(cfg, scfg, state, batch)
+                torch.cuda.synchronize()
+            groups, top = _kernel_groups(prof)
+        else:
+            state, m = _train_step(cfg, scfg, state, batch)
+            torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        print(f"  step {i}: loss {m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, lr "
+              f"{m['lr']:.2e}, wall {1e3 * walls[-1]:.1f} ms"
+              + (" (profiled)" if i == TRAIN_STEPS - 1 else
+                 f", {flops / walls[-1] / 1e12:.1f} TFLOP/s (6 x params x tokens)"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = sum(ms for ms, _ in groups.values())
+    best = min(walls[1:-1])
+    print(f"  Qwen3-1.7B step, remat, 4 x {TRAIN_SEQ} tokens [{card_line()}]: wall {1e3 * best:.1f} "
+          f"ms (unprofiled), device busy {busy:.1f} ms (profiled step), "
+          f"{flops / best / 1e12:.1f} TFLOP/s, peak {peak:.2f} GiB")
+    _print_profile("Qwen3-1.7B training step", 1e3 * best, groups, top)
+    # The next step's loss and gradient norm three ways, from the same state.
+    batch = S.to_device(data.batch_at(TRAIN_STEPS), "cuda")
+    ways = {}
+    for name, sc in (("remat", scfg), ("no remat", dataclasses.replace(scfg, remat=False)),
+                     ("2 microbatches", dataclasses.replace(scfg, microbatches=2))):
+        loss, _, grads = S.loss_and_grads(cfg, sc, state[0], batch)
+        ways[name] = (float(loss), float(adamw.global_norm(grads)))
+        del grads
+        torch.cuda.empty_cache()
+    print(f"  step {TRAIN_STEPS} from one state (loss, grad norm): {ways}")
+    (l0, g0) = ways["remat"]
+    for name, (lv, gv) in ways.items():
+        if not (abs(lv - l0) <= LOSS_RTOL * l0 and abs(gv - g0) <= GNORM_RTOL * g0):
+            raise AssertionError(f"{name}: loss {lv} / grad norm {gv} against remat's {l0} / {g0}")
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        t0 = time.monotonic()
+        store.save(ckpt, TRAIN_STEPS, state)
+        t_save = time.monotonic() - t0
+        like = tree.map_(lambda x: x.to("meta"), state)
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        state, manifest = store.restore(ckpt, like, device="cuda")
+        torch.cuda.synchronize()
+        t_restore = time.monotonic() - t0
+        nbytes = sum(x.numel() * x.element_size() for x in tree.leaves(state))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    state, m = _train_step(cfg, scfg, state, data.batch_at(TRAIN_STEPS))
+    print(f"  checkpoint of step {manifest['step']}: {nbytes / 2**30:.2f} GiB saved in "
+          f"{t_save:.1f} s, restored in {t_restore:.1f} s; the restored step's loss "
+          f"{m['loss']:.6f} (remat, from the live state: {l0:.6f})")
+    if abs(m["loss"] - l0) > LOSS_RTOL * l0:
+        raise AssertionError("the restored state's step gives another loss")
+    del state
+    torch.cuda.empty_cache()
+
+    print("  (b) Mamba2-1.3B at full width and depth")
+    cfg, params = train_model("mamba2_1_3b")
+    data = TextCorpus(seq_len=TRAIN_SEQ, global_batch=2)
+    state = (params, adamw.init(params), None)
+    del params
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = _train_step(cfg, scfg, state, data.batch_at(i), check=True)
+        torch.cuda.synchronize()
+        print(f"  step {i}: loss {m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, every "
+              f"gradient finite, wall {1e3 * (time.monotonic() - t0):.1f} ms")
+    print(f"  Mamba2-1.3B, remat, 2 x {TRAIN_SEQ}: peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card_line()}]")
+    del state
+    torch.cuda.empty_cache()
+
+    print("  (c) Qwen3-30B-A3B at full width, 2 of its 48 layers")
+    cfg, params = train_model("qwen3_moe_30b_a3b", n_layers=2)
+    state = (params, adamw.init(params), None)
+    del params
+    drops, inner = [], moe.route
+
+    def counted(*a, **kw):
+        out = inner(*a, **kw)
+        drops.append(out[4].numel() - out[4].sum())  # pairs past their expert's capacity
+        return out
+
+    moe.route = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = _train_step(cfg, scfg, state, data.batch_at(0), check=True)
+        torch.cuda.synchronize()
+    finally:
+        moe.route = inner
+    n_drop = [int(d) for d in drops[:cfg.n_layers]]  # the forward's, before remat's replays
+    print(f"  step 0: loss {m['loss']:.4f} (ce {m['ce']:.4f}, aux {m['aux_loss']:.6f}), grad "
+          f"norm {m['grad_norm']:.4f}, every gradient finite, wall "
+          f"{1e3 * (time.monotonic() - t0):.1f} ms; capacity {moe.capacity(cfg, 2 * TRAIN_SEQ)} "
+          f"slots an expert, dropped pairs by layer {n_drop} of "
+          f"{2 * TRAIN_SEQ * cfg.top_k}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB [{card_line()}]")
+    if not m["aux_loss"] > 0:
+        raise AssertionError("the MoE step has no aux loss")
+    del state
+    torch.cuda.empty_cache()
+
+    print("  (d) the tiny byte LM: trained, then served through every layout")
+    tiny_train_and_serve(report)
+
+
+def tiny_train_and_serve(report: dict) -> None:
+    """Phase 19(d): ``launch.tiny_lm``'s model trained for its STEPS on the
+    card, then served as ``examples/serve_compressed_torch.py`` serves it."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import tiny_lm
+
+    data = tiny_lm.TextCorpus(seq_len=tiny_lm.SEQ, global_batch=8, max_bytes=2 << 20)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_tiny_")
+    t0 = time.monotonic()
+    try:
+        trainer = tiny_lm.train_tiny_lm(data, tiny_lm.STEPS, "cuda", ckpt_dir=ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    secs = time.monotonic() - t0
+    losses = [m["loss"] for m in trainer.metrics_log]
+    print(f"  trained {len(losses)} steps in {secs:.1f} s [{card_line()}]; loss every 50 steps: "
+          + ", ".join(f"{i}: {losses[i]:.3f}" for i in range(0, len(losses), 50))
+          + f", {len(losses) - 1}: {losses[-1]:.3f}")
+    if not losses[-1] <= losses[0] - MIN_TINY_DROP:
+        raise AssertionError(f"the tiny LM's loss fell from {losses[0]} to {losses[-1]}, less "
+                             f"than {MIN_TINY_DROP} nat")
+    cfg, params = tiny_lm.TINY, trainer.state[0]
+    prompts = [data.batch_at(900 + i)["tokens"][0][:TINY_PROMPT].astype(np.int32)
+               for i in range(TINY_SLOTS)]
+    order = ["raw"] + [n for n in api.available_layouts() if n != "raw"]
+    launches: dict = {}
+    out = {}
+    for layout in order:
+        server = api.serve(dataclasses.replace(cfg, cache_layout=layout), params,
+                           max_slots=TINY_SLOTS, max_seq=TINY_MAX_SEQ, q_chunk=TINY_PROMPT,
+                           kv_chunk=TINY_PROMPT)
+        handles = [server.submit(api.Request(prompt=p, max_new_tokens=TINY_NEW)) for p in prompts]
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        steps = []
+        while True:
+            d0, a0, c0 = server.decode_steps, server._seq, server.stats()["prefill"]["chunks"]
+            t0 = time.monotonic()
+            more = server.step()
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            if (server.decode_steps == d0 + 1 and server._seq == a0
+                    and server.stats()["prefill"]["chunks"] == c0):
+                steps.append(dt)
+            if not more:
+                break
+        got = dict(runtime.launches)
+        _add_launches(report, "tiny_launches", got)
+        toks = [h.result().tokens for h in handles]
+        kv = server.memory_report()["kv_bytes"]
+        out[layout] = toks
+        fetch = "fused_kv_attn_huffman" if layout == "huffman" else "fused_kv_attn"
+        if got[fetch] < 1 or (layout in ("packed", "kivi") and got["pack_encode"] < 1):
+            raise AssertionError(f"{layout}: the tiny LM's serving launched {got}")
+        if any(t.shape != (TINY_NEW,) or t.min() < 0 or t.max() >= cfg.vocab_size for t in toks):
+            raise AssertionError(f"{layout}: bad output {toks}")
+        same = [int(np.argmax(np.append(a != b, True))) for a, b in zip(toks, out["raw"])]
+        print(f"  [{layout:8s}] tokens equal to raw's up to the first difference: {same} of "
+              f"{TINY_NEW}; KV {kv / (TINY_SLOTS * TINY_MAX_SEQ):.1f} B a token slot "
+              f"({kv:,} B for {TINY_SLOTS} x {TINY_MAX_SEQ}); decode step "
+              f"{1e3 * np.mean(steps):.2f} ms (mean of {len(steps)}) [{card_line()}]; "
+              f"launches {({k: v for k, v in got.items() if v})}")
+    sample = bytes(int(t) for t in out["packed"][0]).decode("utf8", errors="replace")
+    print(f"  sample continuation (packed): {sample!r}")
+
+
 def fetch_cases() -> dict:
     """Phase 10's Fetch inputs, packed and huffman: the dense run's last
     decode-step lengths, the paged run's last lengths on a shuffled arena
@@ -2722,6 +3154,9 @@ def main() -> int:
     phase_lifecycle(report, cfg, params)
     phase("[15] observability and the facade at full width")
     phase_observability(report, cfg, params)
+    phase("[18] the per-layer cache policy on full-width Yi-6B: two block sizes, a per-layer "
+          "backend and span")
+    phase_policy(report, cfg, params)
     del params
     torch.cuda.empty_cache()
     phase("[16] the MoE family: Qwen3-30B-A3B and Mixtral-8x22B at full width")
@@ -2729,6 +3164,9 @@ def main() -> int:
     phase("[17] the ssm and hybrid families: Zamba2-7B and Mamba2-1.3B at full width and "
           "depth")
     phase_hybrid(report)
+    phase("[19] training: Qwen3-1.7B, Mamba2-1.3B and Qwen3-30B-A3B at full width, then the "
+          "tiny byte LM trained and served")
+    phase_train(report)
     phase("[10] kernel times")
     kernels = phase_times(report)
     mk, mf, zk = report["mixtral_kernels"], report["mixtral_fetch_err"], report["zamba_kernels"]
@@ -2737,9 +3175,16 @@ def main() -> int:
             "fused_kv_attn_huffman": max(mk["fetch_huffman_err"], zk["fetch_huffman_err"]),
             "fused_kv_attn_huffman_paged": zk["fetch_huffman_paged_err"],
             "pack_encode": max(mk["store_err"], zk["store_err"])}
-    for k in kernels:  # phase 16's and 17's runs are main paths too
-        k["launches"] += (report["moe_launches"].get(k["name"], 0)
-                          + report["hybrid_launches"].get(k["name"], 0))
+    for key in ("t32", "t32_tiny"):  # phase 18's checks at block size 32
+        errs["fused_kv_attn"] = max(errs["fused_kv_attn"], report[key]["fetch_err"])
+        errs["fused_kv_attn_huffman"] = max(errs["fused_kv_attn_huffman"],
+                                            report[key]["fetch_huffman_err"])
+        errs["pack_encode"] = max(errs["pack_encode"], report[key]["store_err"])
+    for row in report["t32_rows"].values():
+        errs["fused_kv_attn"] = max(errs["fused_kv_attn"], row["fetch_err"])
+    for k in kernels:  # phase 16's to 19's runs are main paths too
+        k["launches"] += sum(report[key].get(k["name"], 0) for key in (
+            "moe_launches", "hybrid_launches", "policy_launches", "tiny_launches"))
         if k["name"] in errs:
             k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     phase(f"total {time.monotonic() - t_start:.1f} s")

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 
@@ -35,12 +36,16 @@ from repro_torch.core import bitpack, layouts, pool
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.obs.profiling import annotate
 
-BLOCKWISE_SPAN_TOKENS = 1024  # ~tokens decoded per blockwise-scan step
-
-
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    """Static cache configuration (hashable)."""
+    """Static cache configuration (hashable).
+
+    ``span_tokens`` and ``unroll_max`` are the blockwise scan's knobs
+    (``None`` = the ``REPRO_BLOCKWISE_*`` environment variable, else the
+    module default; ``blockwise_knobs``).  The span sizes the scan's steps;
+    ``unroll_max`` is validated and kept for the reference's signature, and
+    nothing reads it: the port's scan is a host loop, with nothing to
+    unroll."""
 
     layout: str = "packed"
     block_size: int = 64
@@ -54,10 +59,16 @@ class CacheSpec:
     attn_backend: str = "auto"
     mode: str = "dense"  # "dense" | "paged" (shared arena, page-indirect)
     pool_pages: int = 0  # paged: physical pages in the shared arena
+    span_tokens: int | None = None  # ~tokens decoded per scan step
+    unroll_max: int | None = None   # read by nothing (see above)
 
     def __post_init__(self):
         if self.mode not in ("dense", "paged"):
             raise ValueError(f"mode must be dense|paged, got {self.mode!r}")
+        for f in ("span_tokens", "unroll_max"):
+            val = getattr(self, f)
+            if val is not None and val < 1:
+                raise ValueError(f"{f} must be >= 1 when set, got {val}")
         if self.mode == "paged" and self.pool_pages < 1:
             raise ValueError(f"paged mode needs pool_pages >= 1, got {self.pool_pages}")
         if self.window is not None and self.window % self.block_size:
@@ -240,6 +251,37 @@ def attend(cache: LayerKVCache, q: torch.Tensor, scale: float | None = None,
     return cache.spec.impl.attend_block(cache, q, scale, backend=backend)
 
 
+BLOCKWISE_SPAN_TOKENS = 1024  # ~tokens decoded per scan step (peak-memory knob)
+BLOCKWISE_UNROLL_MAX = 64     # the reference's unroll bound (read by nothing here)
+
+ENV_SPAN_TOKENS = "REPRO_BLOCKWISE_SPAN_TOKENS"
+ENV_UNROLL_MAX = "REPRO_BLOCKWISE_UNROLL_MAX"
+
+
+def blockwise_knobs(spec: CacheSpec) -> tuple[int, int]:
+    """Resolve the blockwise scan's (span_tokens, unroll_max): an explicit
+    ``CacheSpec`` field wins (threaded from ``CompressionPolicy`` /
+    ``ModelConfig``, per layer overridable), else the ``REPRO_BLOCKWISE_*``
+    environment variable (read at each call), else the module default."""
+
+    def pick(field: int | None, env: str, default: int) -> int:
+        if field is not None:
+            return field
+        raw = os.environ.get(env)
+        if not raw:
+            return default
+        try:
+            val = int(raw)
+        except ValueError:
+            raise ValueError(f"{env}={raw!r} is not an integer") from None
+        if val < 1:  # the bound CacheSpec enforces on the field
+            raise ValueError(f"{env} must be >= 1, got {val}")
+        return val
+
+    return (pick(spec.span_tokens, ENV_SPAN_TOKENS, BLOCKWISE_SPAN_TOKENS),
+            pick(spec.unroll_max, ENV_UNROLL_MAX, BLOCKWISE_UNROLL_MAX))
+
+
 def attend_blockwise(cache: LayerKVCache, q: torch.Tensor,
                      scale: float | None = None) -> torch.Tensor:
     """The plain decode path (the ``xla`` backend): a blockwise
@@ -275,7 +317,7 @@ def _store_scan(cache: LayerKVCache, qg: torch.Tensor, scale: float):
     spec = cache.spec
     B, Hkv, G, D = qg.shape
     T, NB = spec.block_size, spec.n_blocks
-    span = min(max(1, BLOCKWISE_SPAN_TOKENS // T), NB)
+    span = min(max(1, blockwise_knobs(spec)[0] // T), NB)
     nb_valid = torch.clamp(cache.n_flushed, max=NB)  # [B]
     f32 = torch.float32
     m = torch.full((B, Hkv, G), kref.NEG_INIT, dtype=f32, device=qg.device)

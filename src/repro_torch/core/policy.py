@@ -35,19 +35,32 @@ class TensorPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class LayerOverride:
-    """Overrides applied to an explicit set of attention-layer indices: the
-    layout and the per-tensor quantizer.  The block size stays uniform, as
-    block-chunked admission needs."""
+    """Overrides applied to an explicit set of attention-layer indices."""
 
     layers: tuple[int, ...]
     layout: str | None = None
+    block_size: int | None = None
     k: TensorPolicy = TensorPolicy()
     v: TensorPolicy = TensorPolicy()
+    attn_backend: str | None = None  # per-layer decode-attention backend
+    span_tokens: int | None = None   # per-layer blockwise-scan span knob
+    unroll_max: int | None = None    # kept for the reference's signature (CacheSpec)
 
 
 @dataclasses.dataclass(frozen=True)
 class CompressionPolicy:
-    """Layout + quantizer configuration for a whole model's KV caches."""
+    """Layout + quantizer configuration for a whole model's KV caches.
+
+    ``attn_backend`` picks the decode-attention backend of each layer's
+    cache (``repro_torch.kernels.ops``); ``mode`` the storage container,
+    whole-model: every layer of a paged model must flush the same logical
+    block at the same step for one page id to serve all layers, so paged
+    policies refuse per-layer ``block_size`` overrides.  ``span_tokens``
+    and ``unroll_max`` are the blockwise scan's knobs (``None`` = the
+    environment variable or the module default, see
+    ``repro_torch.core.cache.blockwise_knobs``).  Every field except
+    ``mode`` and ``kivi_bits`` is overridable per layer.
+    """
 
     layout: str = "packed"
     block_size: int = 64
@@ -56,6 +69,8 @@ class CompressionPolicy:
     kivi_bits: int = 2
     attn_backend: str = "auto"
     mode: str = "dense"  # "dense" rings per slot | "paged" (repro_torch.core.pool)
+    span_tokens: int | None = None
+    unroll_max: int | None = None
     overrides: tuple[LayerOverride, ...] = ()
 
     def __post_init__(self):
@@ -65,16 +80,28 @@ class CompressionPolicy:
         for ov in self.overrides:
             if ov.layout is not None:
                 get_layout(ov.layout)
+            if self.mode == "paged" and ov.block_size is not None:
+                raise ValueError(
+                    "paged mode needs a uniform block_size across layers "
+                    "(one page id serves every layer's arena); drop the "
+                    f"block_size override on layers {ov.layers}")
 
     def resolve(self, layer: int) -> "CompressionPolicy":
         """Collapse overrides for one layer into an override-free policy."""
-        layout, k, v = self.layout, self.k, self.v
+        layout, block, k, v = self.layout, self.block_size, self.k, self.v
+        backend, span, unroll = self.attn_backend, self.span_tokens, self.unroll_max
         for ov in self.overrides:
             if layer in ov.layers:
                 layout = ov.layout if ov.layout is not None else layout
+                block = ov.block_size if ov.block_size is not None else block
                 k = ov.k.merged(k)
                 v = ov.v.merged(v)
-        return dataclasses.replace(self, layout=layout, k=k, v=v, overrides=())
+                backend = ov.attn_backend if ov.attn_backend is not None else backend
+                span = ov.span_tokens if ov.span_tokens is not None else span
+                unroll = ov.unroll_max if ov.unroll_max is not None else unroll
+        return dataclasses.replace(self, layout=layout, block_size=block, k=k, v=v,
+                                   attn_backend=backend, span_tokens=span,
+                                   unroll_max=unroll, overrides=())
 
     def spec_for_layer(self, layer: int, *, max_seq: int, window: int | None = None,
                        pool_pages: int = 0) -> CacheSpec:
@@ -97,6 +124,8 @@ class CompressionPolicy:
             attn_backend=r.attn_backend,
             mode=mode,
             pool_pages=pool_pages if mode == "paged" else 0,
+            span_tokens=r.span_tokens,
+            unroll_max=r.unroll_max,
         )
 
     def layer_specs(self, n_layers: int, *, max_seq: int, window: int | None = None,

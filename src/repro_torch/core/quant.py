@@ -33,6 +33,30 @@ import torch
 N_LEVELS_U8 = 256
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Configuration of the KVComp quantizer (the reference's).  The step of
+    each unit is ``rel_scale * (max - min)``; the defaults are the paper's
+    turning points (Fig. 5): K BlockQuant 0.05, V TokenQuant 0.15."""
+
+    block_size: int = 64
+    rel_scale_k: float = 0.05
+    rel_scale_v: float = 0.15
+    k_granularity: str = "block"  # "block" | "channel"
+    # KIVI baseline parameters.
+    kivi_bits: int = 2
+    kivi_group: int = 32
+    residual_window: int = 32  # recent tokens kept unquantized (KIVI-style)
+
+    def __post_init__(self):
+        if self.block_size <= 0:
+            raise ValueError(f"block_size must be positive, got {self.block_size}")
+        if not (0.0 < self.rel_scale_k <= 1.0) or not (0.0 < self.rel_scale_v <= 1.0):
+            raise ValueError("rel_scale must be in (0, 1]")
+        if self.kivi_bits not in (1, 2, 3, 4, 8):
+            raise ValueError(f"kivi_bits must be in {{1,2,3,4,8}}, got {self.kivi_bits}")
+
+
 @dataclasses.dataclass
 class Quantized:
     """Integer codes + per-unit affine parameters.  ``codes`` has the input's

@@ -30,14 +30,6 @@ from repro_torch import api
 from repro_torch.models import model as M
 from repro_torch.models import registry
 
-# Flags of the reference whose knobs the port does not have yet.
-_REFUSED = {
-    "span_tokens": "the per-config blockwise-scan span (a later slice of the port)",
-    "unroll_max": "the scan's unroll bound (the port's scan is a host loop with no "
-                  "unroll knob)",
-}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi_6b")
@@ -65,12 +57,12 @@ def main(argv=None):
                          "the refcounted page index (DESIGN.md §11); noshare "
                          "runs the same chunked admission without sharing")
     ap.add_argument("--span-tokens", type=int, default=None,
-                    help="blockwise-scan span width in tokens (refused: the "
-                         "per-config scan knobs belong to a later slice of "
-                         "the port)")
+                    help="blockwise-scan span width in tokens (default: the "
+                         "REPRO_BLOCKWISE_SPAN_TOKENS env var, else 1024)")
     ap.add_argument("--unroll-max", type=int, default=None,
-                    help="max spans unrolled before the scan loops (refused: "
-                         "the port's scan is a host loop with no unroll knob)")
+                    help="the reference's unroll bound of the scan; validated "
+                         "and kept, read by nothing (the port's scan is a "
+                         "host loop)")
     ap.add_argument("--prefill-mode", default="chunked",
                     choices=["chunked", "solo"],
                     help="chunked (default): splice admission prefills "
@@ -128,12 +120,13 @@ def main(argv=None):
                     help="where the model runs: the card (default) or the "
                          "CPU's plain PyTorch path")
     args = ap.parse_args(argv)
-    for name, what in _REFUSED.items():
-        if getattr(args, name) is not None:
-            ap.error(f"--{name.replace('_', '-')} is not served: {what}")
 
     cfg = registry.get_smoke_config(args.arch)
     cfg = dataclasses.replace(cfg, cache_layout=args.layout)
+    if args.span_tokens is not None:
+        cfg = dataclasses.replace(cfg, cache_span_tokens=args.span_tokens)
+    if args.unroll_max is not None:
+        cfg = dataclasses.replace(cfg, cache_unroll_max=args.unroll_max)
     params = M.init_params(cfg, seed=0, device=args.device)
     faults = None
     if args.fault:

@@ -1,7 +1,7 @@
 """Attention over the compressed KV cache: GQA projections, the
-full-length attention of the prefill, the block-chunked prefill step and
-the one-token decode step (the port of ``repro.models.attention``, serving
-path).  Layout-agnostic: the cache's ``CacheSpec`` names the layout, and
+full-length attention of training and the prefill, the block-chunked
+prefill step and the one-token decode step (the port of
+``repro.models.attention``).  Layout-agnostic: the cache's ``CacheSpec`` names the layout, and
 ``cache.attend`` dispatches to the Fetch kernel or the blockwise scan."""
 
 from __future__ import annotations
@@ -95,6 +95,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         p = torch.softmax(s.masked_fill(~mask, NEG), dim=-1)
         out[:, lo:hi] = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, k_lo:k_hi])
     return out.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def attn_block_train(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                     q_chunk: int = 512) -> torch.Tensor:
+    """Pre-norm attention with its residual over a whole sequence (training
+    and evaluation): causal unless the model is encoder-only.  The
+    reference's ``kv_chunk`` has no counterpart: ``flash_attention`` takes
+    each query block against its whole visible key range."""
+    h = layers.rms_norm(x, params["ln_attn"], cfg.norm_eps)
+    q, k, v = qkv_project(params["attn"], cfg, h, positions)
+    o = flash_attention(q, k, v, causal=cfg.causal and not cfg.encoder_only,
+                        window=cfg.sliding_window, q_chunk=q_chunk)
+    return x + out_project(params["attn"], o)
 
 
 def attn_block_prefill(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,

@@ -2,11 +2,10 @@
 (dense, MoE, ssm, hybrid) plus the ``cache_*`` block.
 
 The port's own copy of ``repro.models.config.ModelConfig``, with the same
-field names and defaults (the reference's blockwise-scan tuning knobs and
-the ``dtype`` tag are left out: the port has no such scan knobs, and its
-serving parameters are float32).  The paper's technique (compressed KV
-cache) is a config block, so a model flips between raw / kivi / packed /
-huffman caches without touching model code.
+fields and defaults.  The paper's technique (compressed KV cache) is a
+config block, so a model flips between raw / kivi / packed / huffman caches
+without touching model code.  ``dtype`` is the training parameters' dtype
+(``train.trainer``); serving takes whatever parameters it is given.
 """
 
 from __future__ import annotations
@@ -66,6 +65,12 @@ class ModelConfig:
     # runs the fused Fetch kernel for CUDA tensors and the blockwise scan on
     # the CPU; "xla"/"fused" pin a path.
     attn_backend: str = "auto"
+    # Blockwise-scan knobs (None = REPRO_BLOCKWISE_* env / module default;
+    # repro_torch.core.cache.blockwise_knobs).
+    cache_span_tokens: int | None = None
+    cache_unroll_max: int | None = None
+    # numerics
+    dtype: str = "bfloat16"
 
     def compression_policy(self):
         """The cache_* fields + overrides as one CompressionPolicy."""
@@ -79,6 +84,8 @@ class ModelConfig:
             kivi_bits=self.kivi_bits,
             attn_backend=self.attn_backend,
             mode=self.cache_mode,
+            span_tokens=self.cache_span_tokens,
+            unroll_max=self.cache_unroll_max,
             overrides=tuple(self.cache_overrides),
         )
 

@@ -1,6 +1,7 @@
 """Model assembly for the dense, MoE, ssm and hybrid families (the port of
-``repro.models.model``, serving entry points: the full-length ``prefill``,
-``decode_step`` and the block-chunked ``prefill_chunk``).
+``repro.models.model``): the training entry points ``forward`` and
+``lm_loss``, and the serving ones, the full-length ``prefill``,
+``decode_step`` and the block-chunked ``prefill_chunk``.
 
 Parameters are nested dicts of tensors with the reference's names and
 shapes: ``emb`` (``embed``, ``unembed``), ``ln_f``, and
@@ -31,6 +32,7 @@ encode-to-page operations.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import cache as kvcache
 from repro_torch.core import pool
@@ -87,6 +89,80 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.floa
         # ONE shared attention block (Zamba2's weight-shared attention).
         params["attn_shared"] = _dense_block(gen, cfg, kw)
     return params
+
+
+def _embed_input(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        return layers.embed_tokens(params["emb"], batch["tokens"])
+    return batch["embeddings"]  # the audio/vlm frontend stub: precomputed
+
+
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward pass under ``remat`` (the
+    reference's ``jax.checkpoint`` of its scan bodies)."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
+            q_chunk: int = 512, kv_chunk: int = 512):
+    """Full-sequence forward (training and evaluation): ``batch`` holds
+    ``tokens`` int [B, S] (or ``embeddings`` [B, S, d] under
+    ``input_mode="embeddings"``).  Returns (logits [B, S, V], {"aux_loss"}),
+    the aux loss summed over the MoE layers (0 elsewhere).  ``remat``
+    recomputes each block (each period, for the hybrid) in the backward
+    pass.  ``kv_chunk`` is the reference's; nothing reads it here
+    (``attention.flash_attention`` has no key chunks)."""
+    _check_family(cfg)
+    x = _embed_input(params, cfg, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def attn_ffn(block_p, x):
+        x = attention.attn_block_train(block_p, cfg, x, positions, q_chunk=q_chunk)
+        if cfg.family == "moe":
+            h = layers.rms_norm(x, block_p["ln_moe"], cfg.norm_eps)
+            y, a = moe.moe_apply(block_p["moe"], cfg, h)
+            return x + y, a
+        h = layers.rms_norm(x, block_p["ln_mlp"], cfg.norm_eps)
+        return x + layers.mlp(block_p["mlp"], h), None
+
+    def period(period_p, x):
+        for block_p in period_p:
+            x = ssm.mamba_block_train(block_p, cfg, x)
+        return attn_ffn(params["attn_shared"], x)[0]
+
+    if cfg.family in ("dense", "moe"):
+        for block_p in params["blocks"]:
+            x, a = _run(lambda x, p=block_p: attn_ffn(p, x), remat, x)
+            if a is not None:
+                aux = aux + a
+    elif cfg.family == "ssm":
+        for block_p in params["blocks"]:
+            x = _run(lambda x, p=block_p: ssm.mamba_block_train(p, cfg, x), remat, x)
+    else:
+        for period_p in params["mamba"]:
+            x = _run(lambda x, p=period_p: period(p, x), remat, x)
+        for block_p in params.get("mamba_tail", ()):
+            x = ssm.mamba_block_train(block_p, cfg, x)
+    x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return layers.unembed(params["emb"], x), {"aux_loss": aux}
+
+
+def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = False,
+            q_chunk: int = 512, kv_chunk: int = 512):
+    """Next-token cross entropy (tokens mode) or frame cross entropy (encoder
+    mode) against ``batch["labels"]`` int [B, S], masked by ``batch["mask"]``
+    when given, in float32, plus the MoE aux loss.  Returns ``(loss, {"ce",
+    "aux_loss"})``."""
+    logits, aux = forward(params, cfg, batch, remat=remat, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk)
+    lf = logits.to(torch.float32)
+    labels = batch["labels"].long()
+    ll = lf.gather(-1, labels[..., None])[..., 0] - torch.logsumexp(lf, dim=-1)
+    mask = batch.get("mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(torch.float32)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux["aux_loss"], {"ce": loss, **aux}
 
 
 def n_cache_layers(cfg: ModelConfig) -> int:
@@ -285,7 +361,7 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, q_chunk: int = 512):
     paged spec); the scheduler splices them into its live state."""
     _check_family(cfg)
     _check_nonuniform_supported(cfg)
-    x = layers.embed_tokens(params["emb"], batch["tokens"])
+    x = _embed_input(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     state = {}

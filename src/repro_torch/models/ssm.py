@@ -1,6 +1,6 @@
-"""Mamba2 (state-space duality) mixer: chunked SSD for the full-length
-prefill and the constant-state recurrence for decode (the port of
-``repro.models.ssm``; ``mamba_block_train`` comes with the training slice).
+"""Mamba2 (state-space duality) mixer: chunked SSD for training and the
+full-length prefill, and the constant-state recurrence for decode (the port
+of ``repro.models.ssm``).
 
 Plain PyTorch throughout: the reference computes all of this outside any
 Pallas kernel, as einsums and a ``lax.scan``.  Decode keeps a fixed
@@ -176,10 +176,9 @@ def _gated_out(params, cfg: ModelConfig, u, y, z):
     return u + y @ params["out_proj"].to(u.dtype)
 
 
-@annotate("mamba")
-def mamba_block_prefill(params, cfg: ModelConfig, u: torch.Tensor):
-    """Forward over the prompt u [B, S, d]; returns (out [B, S, d], the
-    decode state {conv, ssm})."""
+def _mixer(params, cfg: ModelConfig, u: torch.Tensor):
+    """The block over a whole sequence u [B, S, d]: (out [B, S, d] with the
+    residual, the pre-conv xBC [B, S, C], the final SSM state)."""
     di, P, H, N, G, conv_ch = _dims(cfg)
     x_in = layers.rms_norm(u, params["ln"], cfg.norm_eps)
     z, xBC, dt_raw = _split_proj(cfg, x_in @ params["in_proj"].to(x_in.dtype))
@@ -192,8 +191,22 @@ def mamba_block_prefill(params, cfg: ModelConfig, u: torch.Tensor):
     y, h_final = ssd_scan(xh, a, dt, Bs.reshape(b, S, G, N), Cs.reshape(b, S, G, N),
                           cfg.ssm_chunk)
     y = y + params["D"].to(torch.float32)[:, None] * xh.to(torch.float32)
-    out = _gated_out(params, cfg, u, y.reshape(b, S, di), z)
-    K = cfg.ssm_conv
+    return _gated_out(params, cfg, u, y.reshape(b, S, di), z), xBC, h_final
+
+
+@annotate("mamba")
+def mamba_block_train(params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
+    """u: [B, S, d] -> [B, S, d] (residual included): the prefill's block
+    without its decode state."""
+    return _mixer(params, cfg, u)[0]
+
+
+@annotate("mamba")
+def mamba_block_prefill(params, cfg: ModelConfig, u: torch.Tensor):
+    """Forward over the prompt u [B, S, d]; returns (out [B, S, d], the
+    decode state {conv, ssm})."""
+    out, xBC, h_final = _mixer(params, cfg, u)
+    K, S = cfg.ssm_conv, u.shape[1]
     conv = (xBC[:, S - (K - 1):] if S >= K - 1 else F.pad(xBC, (0, 0, K - 1 - S, 0)))
     return out, {"conv": conv, "ssm": h_final}
 

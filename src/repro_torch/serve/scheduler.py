@@ -429,13 +429,15 @@ class Server:
 
         # The dense twin of every cache layer's spec.  Block-chunked
         # admission (the reference's unified path) needs a pure-KV family and
-        # one block size; every other model takes the full-length admission.
+        # one block size across layers; every other model, a dense or MoE one
+        # with per-layer block sizes among them, takes the full-length
+        # admission, whose numerics differ from the chunk path's for lossy
+        # layouts (in the reference too: chunks attend earlier blocks through
+        # the compressed store, the full-length prefill attends them raw).
         specs = M.cache_specs(cfg, scfg.max_seq) if M.n_cache_layers(cfg) else ()
-        if len({s.block_size for s in specs}) > 1:
-            raise NotImplementedError(
-                "per-layer block sizes come with a later slice of the port")
-        self._spec0 = specs[0] if specs else None
-        self.prefill_unified = cfg.family in ("dense", "moe")
+        uniform_t = len({s.block_size for s in specs}) == 1
+        self._spec0 = specs[0] if uniform_t else None
+        self.prefill_unified = cfg.family in ("dense", "moe") and uniform_t
         self.prefill_chunked = scfg.prefill_mode == "chunked" and self.prefill_unified
         self._chunk_t = self._chunk_budget = None
         if self.prefill_unified:
@@ -453,6 +455,8 @@ class Server:
             # One page is one compression block across all layers (they all
             # flush the same logical block at the same step), accounted in
             # post-compression bytes per layer.
+            if len({(s.block_size, s.n_blocks) for s in specs}) > 1:
+                raise ValueError("paged mode requires a uniform block_size across layers")
             per_layer = tuple(blockpool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim)
                               for s in specs)
             nb = self._spec0.n_blocks

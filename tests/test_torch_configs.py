@@ -1,7 +1,7 @@
 """The port's architecture configs (``repro_torch.configs``) against the
 reference's, field for field, full and smoke size: every field the port
-keeps equals the reference's, every field it leaves out (the blockwise-scan
-tuning knobs and the dtype tag) is at the reference's default, the analytic
+keeps equals the reference's, any field it left out would have to be at the
+reference's default (none is left out), the analytic
 parameter counts agree, and the port registers every arch the reference
 does, in its order."""
 

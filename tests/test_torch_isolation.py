@@ -1,7 +1,10 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package, importing every module of
-the port leaves ``jax`` out of ``sys.modules``, and ``chip_smoke.py`` fails
-without a card (and in a directory holding nothing else of the repo)."""
+neither JAX nor anything of the reference package, and nothing beyond the
+standard library and the packages the card machine has (torch, numpy,
+scipy, einops; triton inside the functions that launch a kernel);
+importing every module of the port leaves ``jax`` out of ``sys.modules``,
+and ``chip_smoke.py`` fails without a card (and in a directory holding
+nothing else of the repo)."""
 
 import ast
 import os
@@ -34,6 +37,33 @@ def test_no_jax_or_reference_imports(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             if _forbidden(node.module or ""):
                 bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+# What the card machine has besides the standard library, and the port itself.
+CARD_PACKAGES = {"torch", "numpy", "scipy", "einops", "triton", "repro_torch"}
+
+
+def _imports(tree):
+    """(top-level module name, at module level?) of every absolute import."""
+    top = set(id(n) for n in tree.body)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], id(node) in top
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_only_what_the_card_machine_has(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for name, at_top in _imports(tree):
+        if name in sys.stdlib_module_names or name == "__future__":
+            continue
+        if name not in CARD_PACKAGES or (name == "triton" and at_top):
+            bad.append(name)
     assert not bad, f"{path}: imports {bad}"
 
 

@@ -2,7 +2,8 @@
 process on the CPU at smoke width: the reference's flags and workload
 generator, the throughput line and the stats snapshot, the telemetry files
 ``--trace-out`` / ``--metrics-out`` write, tokens equal to ``api.serve``
-with the same arguments, and the options of later slices refused."""
+with the same arguments, the blockwise-scan knobs taken, and the options of
+later slices refused."""
 
 import dataclasses
 import json
@@ -110,14 +111,37 @@ def test_cli_refuses_the_encoder_only_arch(capsys):
 
 @pytest.mark.parametrize("argv,what", [
     (["--mesh", "1,1"], "later slice of the port (multi-GPU sharded serving)"),
-    (["--span-tokens", "64"], "--span-tokens is not served"),
-    (["--unroll-max", "4"], "--unroll-max is not served"),
 ])
 def test_cli_refuses_options_of_later_slices(argv, what, capsys):
     with pytest.raises(SystemExit) as e:
         launch.main(BASE + argv)
     assert e.value.code == 2
     assert what in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--span-tokens", "16"], "cache_span_tokens", 16),
+    (["--unroll-max", "4"], "cache_unroll_max", 4),
+])
+def test_cli_takes_the_scan_knobs(argv, field, value, monkeypatch, capsys):
+    """``--span-tokens`` and ``--unroll-max`` reach the served config, as in
+    the reference's launcher; the span only re-tiles the scan, so the tokens
+    are those of the default span."""
+    seen = []
+    inner = api.serve
+
+    def serve(cfg, *a, **kw):
+        seen.append(getattr(cfg, field))
+        return inner(cfg, *a, **kw)
+
+    monkeypatch.setattr(launch.api, "serve", serve)
+    argv = BASE[:1] + ["yi_6b", "--requests", "2", "--prompt-len", "24", "--new-tokens", "3",
+                       "--max-slots", "2", "--max-seq", "64", "--device", "cpu",
+                       "--backend", "xla"] + argv
+    got = [r.tokens.tolist() for r in launch.main(argv)]
+    monkeypatch.setattr(launch.api, "serve", inner)
+    assert seen == [value]
+    assert got == [r.tokens.tolist() for r in launch.main(argv[:-2])]
 
 
 def test_quickstart_example_runs_on_the_cpu(capsys):

@@ -7,7 +7,9 @@ conftest drops JAX's compiled ops after every module.  pytest-xdist hands
 each worker the port's modules in several runs of tests, so without this
 cache a worker paid that compile again in every module, and in every test
 that built its own pair.  The cached values are the weights ``init_params``
-gives, bit for bit; the cache only keeps them.  Nothing here is a test.
+gives, bit for bit; the cache only keeps them.  ``np_params`` fills the
+reference's parameter tree from a numpy seed instead, without running the
+reference's init at all.  Nothing here is a test.
 """
 
 import dataclasses
@@ -50,3 +52,27 @@ def params(jcfg):
     change them in place."""
     return _weights(_weights_key(jcfg))
 
+
+_ONES = ("ln", "ln_attn", "ln_mlp", "ln_moe", "ln_f", "norm", "q_norm", "k_norm", "D")
+
+
+def np_params(jcfg, seed: int):
+    """The reference's parameter tree for ``jcfg`` (shapes from an abstract
+    ``init_params``) filled from a numpy seed: norms near 1, A_log as the
+    reference initialises it, the rest normal over sqrt(fan-in)."""
+    shapes = jax.eval_shape(lambda k: JM.init_params(jcfg, k)[0], jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = str(path[-1].key)
+        if name in _ONES:
+            return (1 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if name == "A_log":
+            return np.broadcast_to(np.log(np.linspace(1, 16, s.shape[-1])),
+                                   s.shape).astype(np.float32).copy()
+        if name in ("dt_bias", "conv_b"):
+            return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        fan = s.shape[-2] if len(s.shape) >= 2 else 1
+        return (rng.standard_normal(s.shape) / np.sqrt(fan)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
