@@ -41,9 +41,10 @@ exits non-zero before the result lines:
    kernels on ``walk_edge_cases`` (S of 1, 40, 64 and 100; edge books and
    streams) against their plain versions, by the same rule.
 5. Serve, dense: a Server on full-width Yi-6B (random weights from a seed,
-   float32, all 32 layers; built once and shared by every serving phase), 4
-   requests of several hundred to 1000 prompt tokens, 32 new tokens each,
-   every request crossing a block boundary in decode.  Launch counts are
+   float32, YI_LAYERS = 8 of its 32 layers; built once and shared by the
+   serving phases 5 to 15, 18 and 20), 4 requests of several hundred to
+   1000 prompt tokens, 32 new tokens each, every request crossing a block
+   boundary in decode.  Launch counts are
    zeroed just before the run and read just after; both kernels must have
    launched.  The output is checked for shape and range.
 6. Batched vs solo: the same requests one at a time through a server of the
@@ -67,7 +68,7 @@ exits non-zero before the result lines:
    requests and pool bytes.  Every pure decode step must launch the huffman
    Fetch (dense, or paged) once per layer and nothing else; every chunk must
    run the slot LUT decode once a span of its store scan and layer (K and V
-   in one launch: 4 spans x 32 layers = 128), in the run and in the profiled
+   in one launch: 4 spans x 8 layers = 32), in the run and in the profiled
    chunks.  Greedy tokens must equal phase 5's and
    phase 9(a)'s packed tokens exactly (the same codes, entropy-coded).  One
    decode step and one chunk of each are profiled as in phase 7.
@@ -173,16 +174,34 @@ exits non-zero before the result lines:
    reference's error.  Phase 17's launches join the JSON line's counts.
 18. The per-layer cache policy, on phase 5's weights: (a) phase 3's checks
    at block size 32, at Yi-6B's shapes and at the tiny LM's (Hkv 4, G 2,
-   D 32); (b) layers 0 to 15 at block 64, 16 to 31 at block 32, 24 to 31
+   D 32); (b) layers 0 to 3 at block 64, 4 to 7 at block 32, 6 and 7
    through the plain blockwise scan with a 256-token span: phase 5's
    requests batched, then each alone, with identical greedy tokens; every
-   pure decode step launches the Fetch 24 times and the Store 32 times,
-   every admission is one full-length prefill (32 Store launches, no
+   pure decode step launches the Fetch 6 times and the Store 8 times,
+   every admission is one full-length prefill (8 Store launches, no
    chunk), and a paged server refuses the policy with the reference's
    ValueError; (c) the Fetch (packed) and the Store at block size 32
    against their plain versions, single calls, with their ms and bounds, at
    Yi-6B's and the tiny LM's shapes.  Phase 18's launches join the JSON
    line's counts.
+20. Sharded serving, on phase 5's weights (after 18): ``torch.cuda.
+   device_count()`` printed; with two cards or more the shards take
+   distinct cards and phase 3's checks also run on cuda:1, with one card
+   every shard shares cuda:0 (each with tensors and launches of its own).
+   (a) a (2, 2) mesh, dense packed, phase 5's requests; (b) a (2, 2) mesh,
+   paged with the prefix cache on, phase 13(a)'s requests (staggered) and
+   pool bytes: the hits, pages and preemptions by shard printed; (c) a
+   (2, 1) mesh, paged in phase 9(b)'s pool of TIGHT_PAGES pages (half a
+   shard): at least one preemption; (d) a (2, 2) mesh, dense huffman,
+   phase 5's requests, 16 new tokens (SHARD_HUFFMAN_NEW).  The tokens of
+   each must equal the unsharded phase's (5, 13(a), 9, 12: its first 16)
+   exactly; every pure decode step must launch
+   the Fetch (and, packed, the Store) once a shard and a layer (4 x 8 on
+   a (2, 2) mesh); once half the rows are live, each shard's Fetch on
+   layers 0 and 7 must be bit-equal to one unsharded Fetch over the
+   shards' blocks gathered (rows, heads and pages in global ids); the
+   invariant auditor runs every step and stays clean.  Phase 20's
+   launches join the JSON line's counts.
 19. Training, once phase 17's models are freed (every figure beside the
    card's name and power limit): (a) Qwen3-1.7B at full width and depth
    (28 layers, tied embeddings, random float32 weights from seed 0) on
@@ -234,6 +253,7 @@ earlier commit, unpacked there) and times them against this tree's on phase
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -251,6 +271,10 @@ TF32_FLOPS = 495e12    # H100 SXM TF32 tensor cores, dense
 B, HKV, G, D, T, NB = 4, 4, 8, 128, 64, 64
 PROMPT_LENS = (300, 500, 750, 1000)  # each % 64 >= 33: decode crosses a block
 NEW_TOKENS = 32
+# Yi-6B's depth in the serving phases: the layers are alike, and the serving
+# phases are bound by the host's time a layer, so 8 of 32 keep the script
+# inside its time limit at full width.
+YI_LAYERS = 8
 # The paged serving phase: 8 slots; each prompt % 64 >= 17, so 48 new
 # tokens cross a block boundary in decode.
 PAGED_LENS = (280, 350, 420, 490, 560, 630, 700, 750)
@@ -854,16 +878,20 @@ def walk_edge_checks(scores_err: float) -> tuple[int, float]:
 
 
 def yi_6b():
-    """Full-width Yi-6B with random float32 weights from seed 0."""
+    """Full-width Yi-6B, YI_LAYERS of its layers, with random float32
+    weights from seed 0."""
+    import dataclasses
+
     import torch
     from repro_torch.models import model as M
     from repro_torch.models import registry
 
-    cfg = registry.get_config("yi_6b")
+    full = registry.get_config("yi_6b")
+    cfg = dataclasses.replace(full, n_layers=YI_LAYERS)
     t0 = time.monotonic()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    print(f"  Yi-6B: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+    print(f"  Yi-6B: {cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.2f}B float32 params "
           f"({time.monotonic() - t0:.1f} s to init)")
@@ -1124,15 +1152,16 @@ def _chunk_profile(cfg, params, server, prompt) -> float:
 
 
 def _serve_run(cfg, params, prompts, scfg, new_tokens, profile: bool = False,
-               stagger: bool = False, after=None, server=None) -> dict:
+               stagger: bool = False, after=None, server=None, on_step=None) -> dict:
     """Serve ``prompts`` through one server (``server``, else a new one of
     ``scfg``), ``new_tokens`` each (or one budget a prompt), stepping by
     hand: the launch counts of every pure decode step (the kernels that
     launched, and how often), the peak number of live rows, and (``profile``) one decode step with every row live and, after
     the run, one prefill chunk.  A step that admitted a request (a chunk,
     or a full-length prefill) is not a pure decode step.  ``stagger`` submits the first prompt alone
-    and the others once it decodes; ``after(server)`` runs on the drained
-    server and its dict joins the result."""
+    and the others once it decodes; ``on_step(server)`` runs after each
+    step; ``after(server)`` runs on the drained server and its dict joins
+    the result."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.serve.scheduler import Request, Server
@@ -1176,6 +1205,8 @@ def _serve_run(cfg, params, prompts, scfg, new_tokens, profile: bool = False,
             per_step.add(tuple(sorted((k, v - l0[k]) for k, v in runtime.launches.items()
                                       if v - l0[k])))
         peak = max(peak, server.active)
+        if on_step is not None:
+            on_step(server)
         if not more:
             break
     torch.cuda.synchronize()
@@ -2304,11 +2335,12 @@ def phase_hybrid(report: dict) -> None:
     print(f"  phase 17: {time.monotonic() - t_phase:.1f} s [{card}]")
 
 
-# Phase 18: the per-layer cache policy on full-width Yi-6B.  Layers 0 to 15
-# keep phase 5's 64-token blocks; 16 to 31 take 32-token blocks, and 24 to
-# 31 the plain blockwise scan (``attn_backend="xla"``) with a 256-token span.
-POLICY_SMALL_BLOCK = tuple(range(16, 32))
-POLICY_SCAN_LAYERS = tuple(range(24, 32))
+# Phase 18: the per-layer cache policy on full-width Yi-6B.  The first half
+# of its YI_LAYERS keep phase 5's 64-token blocks; the second half take
+# 32-token blocks, and its last quarter the plain blockwise scan
+# (``attn_backend="xla"``) with a 256-token span.
+POLICY_SMALL_BLOCK = tuple(range(YI_LAYERS // 2, YI_LAYERS))
+POLICY_SCAN_LAYERS = tuple(range(3 * YI_LAYERS // 4, YI_LAYERS))
 POLICY_SPAN = 256
 # Phase 19: training.  Qwen3-1.7B at full width and depth on 4 x 512 tokens;
 # Mamba2-1.3B on 2 x 512; Qwen3-30B-A3B at full width, 2 of 48 layers, on
@@ -2440,6 +2472,154 @@ def phase_policy(report: dict, cfg, params) -> None:
     print("  (c) times at block size 32")
     t32_times(report)
     report["policy_launches"] = run["launches"]
+
+
+# Phase 20: sharded serving on Yi-6B's weights over ("data", "model") meshes.
+# The shards take distinct cards while there are enough, else they share
+# them in turn (one card: every shard on cuda:0).  (d)'s huffman decode step
+# runs the plain huffman Store on each of 4 shards (~0.9 s a step on one
+# card), so it decodes 16 tokens, phase 12's first 16: a row's tokens do not
+# depend on the other rows or on its own budget.
+SHARD_HUFFMAN_NEW = 16
+
+
+def mesh_devices(n: int) -> list[str]:
+    import torch
+
+    cards = torch.cuda.device_count()
+    return [f"cuda:{i % cards}" for i in range(n)]
+
+
+def shard_fetch_check(server, seed: int) -> int:
+    """Each shard's Fetch against one unsharded Fetch over the same blocks
+    (the shards gathered along rows, heads and pages, in global page ids),
+    on layers 0 and L-1 with a random query: bit-equal.  The launches it
+    makes are not the main path's, so the counts are restored.  Returns the
+    rows live at the check."""
+    import torch
+    from repro_torch.kernels import ops, runtime
+
+    saved = dict(runtime.launches)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kv = server.state["kv"]
+    for i in (0, len(kv) - 1):
+        c = kv[i]
+        q = torch.randn((c.batch, server.cfg.n_heads, c.head_dim), generator=gen,
+                        device=c.home, dtype=torch.float32)
+        got, want = c.attend(q), ops.cache_decode_attention(c.gather(), q)
+        if not torch.equal(got, want):
+            raise AssertionError(f"layer {i}: a shard's Fetch differs from the unsharded "
+                                 f"call's rows and heads by {(got - want).abs().max().item()}")
+    runtime.launches.update(saved)
+    return server.active
+
+
+def phase_shard(report: dict, cfg, params) -> None:
+    """Phase 20: sharded serving on full-width Yi-6B (phase 5's weights):
+    (a) a (2, 2) mesh, dense packed, phase 5's requests; (b) a (2, 2) mesh,
+    paged with the prefix cache on, phase 13(a)'s requests and pool bytes;
+    (c) a (2, 1) mesh, paged in phase 9(b)'s 40-page pool (20 a shard); (d)
+    a (2, 2) mesh, dense huffman, phase 5's requests, SHARD_HUFFMAN_NEW new
+    tokens.  Tokens must equal the unsharded phases' exactly; a pure decode step must launch the Fetch and
+    the Store once a shard and a layer; each shard's Fetch output must be
+    bit-equal to one unsharded call's rows and heads; the auditor checks
+    every step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import pool
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import ServerConfig
+
+    cards = torch.cuda.device_count()
+    print(f"  torch.cuda.device_count() = {cards}")
+    if cards >= 2:
+        print("  (0) phase 3's checks on cuda:1", flush=True)
+        with torch.cuda.device(1):
+            phase_kernels(report, key="cuda1_kernels")
+    else:
+        print("  one card: every shard of a mesh lives on cuda:0, with tensors and "
+              "launches of its own")
+    L = cfg.n_layers
+    page_b = sum(pool.page_nbytes(s, cfg.n_kv_heads, cfg.resolved_head_dim)
+                 for s in M.cache_specs(cfg, 4096))
+    rng = np.random.default_rng(0)
+    prompts5 = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    rng = np.random.default_rng(1)
+    prompts9 = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PAGED_LENS]
+    hcfg = dataclasses.replace(cfg, cache_layout="huffman")
+    base = dict(max_seq=4096, attn_backend="fused", audit_every=1)
+    launches: dict = {}
+    checked = {}
+
+    def check_once(key):
+        def on_step(server):
+            if key not in checked and server.active >= server.scfg.max_slots // 2:
+                checked[key] = shard_fetch_check(server, len(checked))
+
+        def after(server):
+            if key not in checked:
+                checked[key] = shard_fetch_check(server, len(checked))
+            if not server.auditor.report()["clean"]:
+                raise AssertionError(f"auditor: {server.auditor.report()['violations'][:4]}")
+            return {"shards": server.stats()["shards"], "audits": server.auditor.audits}
+        return on_step, after
+
+    runs = (
+        ("a", "(2, 2) mesh, dense packed, phase 5's requests", "2,2", cfg, prompts5,
+         dict(max_slots=B), NEW_TOKENS, False, report["tokens"],
+         {(("fused_kv_attn", 4 * L), ("pack_encode", 4 * L))}),
+        ("b", "(2, 2) mesh, paged, prefix on, phase 13(a)'s requests and pool", "2,2", cfg,
+         report["prefix"]["prompts"],
+         dict(max_slots=PB, cache_mode="paged", prefix_cache="on",
+              pool_hbm_bytes=report["prefix"]["pool_bytes"]), PREFIX_NEW, True,
+         report["prefix"]["tokens"],
+         {(("fused_kv_attn_paged", 4 * L), ("pack_encode", 4 * L))}),
+        ("c", f"(2, 1) mesh, paged, phase 9(b)'s pool of {TIGHT_PAGES} pages", "2,1", cfg,
+         prompts9, dict(max_slots=PB, cache_mode="paged", pool_hbm_bytes=TIGHT_PAGES * page_b),
+         PAGED_NEW, False, report["paged"]["tokens"],
+         {(("fused_kv_attn_paged", 2 * L), ("pack_encode", 2 * L))}),
+        ("d", f"(2, 2) mesh, dense huffman, phase 5's requests, {SHARD_HUFFMAN_NEW} new "
+         "tokens", "2,2", hcfg, prompts5, dict(max_slots=B), SHARD_HUFFMAN_NEW, False,
+         [t[:SHARD_HUFFMAN_NEW] for t in report["tokens"]],
+         {(("fused_kv_attn_huffman", 4 * L),)}),
+    )
+    out = {}
+    for key, what, spec, c, prompts, kw, new, stagger, want_tokens, want_step in runs:
+        t0 = time.monotonic()
+        mesh = make_serve_mesh(spec, devices=mesh_devices(4 if spec == "2,2" else 2))
+        print(f"  ({key}) {what}; shards on {[str(d) for d in mesh.devices.flat]}", flush=True)
+        on_step, after = check_once(key)
+        r = _serve_run(c, params, prompts, ServerConfig(mesh=mesh, **base, **kw), new,
+                       stagger=stagger, on_step=on_step, after=after)
+        same = sum(int(np.array_equal(x, y)) for x, y in zip(want_tokens, r["tokens"]))
+        print(f"  tokens equal to the unsharded phase's: {same}/{len(prompts)} requests")
+        if same != len(prompts):
+            raise AssertionError(f"phase 20({key}): sharded tokens differ from unsharded")
+        if r["per_step"] != want_step:
+            raise AssertionError(f"phase 20({key}): a pure decode step launched "
+                                 f"{r['per_step']}, expected {want_step}")
+        per = r["shards"]["per_shard"]
+        print(f"  a pure decode step: {[dict(x) for x in r['per_step']]} (one a shard and a "
+              f"layer); each shard's Fetch bit-equal to the unsharded call's rows and heads "
+              f"({checked[key]} rows live); auditor clean over {r['audits']} audits; by "
+              f"shard: {per}  ({time.monotonic() - t0:.1f} s)")
+        _add_launches(report, "shard_launches", r["launches"])
+        out[key] = r
+    print(f"  phase 5's pure decode step for comparison: {report['per_step']}")
+    px = out["b"]["stats"]["prefix"]
+    print(f"  (b) prefix: {px['hits']} hits of {px['lookups']} lookups, {px['hit_blocks']} "
+          f"blocks reused; index by shard {px['index']}")
+    if px["hits"] < 1:
+        raise AssertionError("phase 20(b): no prefix hit on any shard")
+    pre = [s["preemptions"] for s in out["c"]["shards"]["per_shard"]]
+    print(f"  (c) preemptions by shard: {pre}")
+    if sum(pre) < 1:
+        raise AssertionError("phase 20(c): the 40-page pool preempted nothing")
+    print(f"  card: {card_line()}")
+    torch.cuda.empty_cache()
 
 
 def _grad_check(grads) -> None:
@@ -3157,7 +3337,12 @@ def main() -> int:
     phase("[18] the per-layer cache policy on full-width Yi-6B: two block sizes, a per-layer "
           "backend and span")
     phase_policy(report, cfg, params)
+    phase("[20] sharded serving on full-width Yi-6B over (data, model) meshes")
+    phase_shard(report, cfg, params)
     del params
+    # A Server with an auditor (phases 14 and 20) is a reference cycle that
+    # holds the weights: collect it before the next model is built.
+    gc.collect()
     torch.cuda.empty_cache()
     phase("[16] the MoE family: Qwen3-30B-A3B and Mixtral-8x22B at full width")
     phase_moe(report)
@@ -3175,16 +3360,18 @@ def main() -> int:
             "fused_kv_attn_huffman": max(mk["fetch_huffman_err"], zk["fetch_huffman_err"]),
             "fused_kv_attn_huffman_paged": zk["fetch_huffman_paged_err"],
             "pack_encode": max(mk["store_err"], zk["store_err"])}
-    for key in ("t32", "t32_tiny"):  # phase 18's checks at block size 32
+    # phase 18's checks at block size 32, and phase 20's on a second card
+    for key in [k for k in ("t32", "t32_tiny", "cuda1_kernels") if k in report]:
         errs["fused_kv_attn"] = max(errs["fused_kv_attn"], report[key]["fetch_err"])
         errs["fused_kv_attn_huffman"] = max(errs["fused_kv_attn_huffman"],
                                             report[key]["fetch_huffman_err"])
         errs["pack_encode"] = max(errs["pack_encode"], report[key]["store_err"])
     for row in report["t32_rows"].values():
         errs["fused_kv_attn"] = max(errs["fused_kv_attn"], row["fetch_err"])
-    for k in kernels:  # phase 16's to 19's runs are main paths too
+    for k in kernels:  # phase 16's to 20's runs are main paths too
         k["launches"] += sum(report[key].get(k["name"], 0) for key in (
-            "moe_launches", "hybrid_launches", "policy_launches", "tiny_launches"))
+            "moe_launches", "hybrid_launches", "policy_launches", "tiny_launches",
+            "shard_launches"))
         if k["name"] in errs:
             k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     phase(f"total {time.monotonic() - t_start:.1f} s")

@@ -81,8 +81,13 @@ def serve(cfg, params, *, max_slots: int = 8, max_seq: int = 4096,
     trace, exported by ``server.shutdown(trace_out=...)`` as Chrome JSON),
     and the request lifecycle (``max_requeues``, ``max_pending``,
     ``backpressure``, ``default_deadline_s``, ``faults``, ``audit_every``).
-    ``mesh`` belongs to a later slice of the port and raises
-    ``NotImplementedError`` unless None.  ``q_chunk`` sizes the query block
+    ``mesh`` serves across devices (DESIGN.md §12): a ``("data", "model")``
+    mesh of torch devices (``repro_torch.launch.mesh.make_serve_mesh("dp,tp",
+    devices=...)``; a device may repeat) shards decode slots, page tables
+    and the arena's pages over "data" and KV heads over "model", with one
+    copy of the parameters on the mesh's first device, so greedy tokens
+    equal the single-device server's; ``server.stats()["shards"]`` reports
+    each data shard's pages and preemptions.  ``q_chunk`` sizes the query block
     of the full-length prefill that admits the ssm and hybrid families
     (``attention.flash_attention``); ``kv_chunk`` is accepted and validated
     for the reference's signature and changes nothing here, since a query

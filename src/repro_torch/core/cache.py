@@ -219,7 +219,11 @@ def append(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> Lay
     sentinel slot ``NB`` and write nothing, so no host-side check of which
     rows flush is needed (the reference skips the encode with a device-side
     ``lax.cond``).  In paged mode the ring slots translate through the page
-    table to arena pages first; an unassigned entry also drops."""
+    table to arena pages first; an unassigned entry also drops.  A cache
+    split over a serving mesh (``distributed.serve_shard``) appends shard by
+    shard."""
+    if not isinstance(cache, LayerKVCache):
+        return cache.append(k_new, v_new)
     spec = cache.spec
     T, NB = spec.block_size, spec.n_blocks
     B = cache.batch

@@ -84,18 +84,27 @@ class PagedBlockPool:
     zero.  A page is never handed out twice while a reference is
     outstanding, never released below zero, and never retained or released
     without having been allocated.
+
+    ``offset`` re-bases the page ids to ``[offset, offset + n_pages)``: each
+    data shard of a sharded server (``repro_torch.distributed.serve_shard``)
+    hands out ids from its own slice of the global page range, so ids stay
+    unique across shards and an id names its shard by integer division.
     """
 
-    def __init__(self, n_pages: int, page_nbytes_per_layer):
+    def __init__(self, n_pages: int, page_nbytes_per_layer, offset: int = 0):
         if n_pages < 1:
             raise ValueError(f"pool needs >= 1 page, got {n_pages}")
+        if offset < 0:
+            raise ValueError(f"page-id offset must be >= 0, got {offset}")
         self.n_pages = int(n_pages)
+        self.offset = int(offset)
         self.page_nbytes_per_layer = tuple(int(b) for b in page_nbytes_per_layer)
-        self._free: list[int] = list(range(self.n_pages - 1, -1, -1))
+        self._free: list[int] = list(range(self.offset + self.n_pages - 1,
+                                           self.offset - 1, -1))
         self._live: set[int] = set()
         self._ref: dict[int, int] = {}  # page -> outstanding references
         # Standalone metric objects, adopted by the Server's MetricsRegistry
-        # under ``pool.shard0.*`` names.
+        # under ``pool.shard{d}.*`` names.
         self.m_high_water = Gauge()
         self.m_alloc_pages = Counter()
         self.m_freed_pages = Counter()
@@ -104,6 +113,10 @@ class PagedBlockPool:
     def high_water(self) -> int:
         """Most pages ever simultaneously live."""
         return int(self.m_high_water.value)
+
+    def owns(self, page) -> bool:
+        """Whether ``page`` falls in this pool's id range (live or not)."""
+        return self.offset <= int(page) < self.offset + self.n_pages
 
     @property
     def free_pages(self) -> int:

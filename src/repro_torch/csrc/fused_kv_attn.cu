@@ -626,7 +626,9 @@ const char* fused_kv_attn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the split kernel and the combine on `stream` and returns
+// Launches the split kernel and the combine on `stream` of card `device`
+// (the card that holds the tensors; the launch selects it itself, since this
+// library's runtime keeps a current device of its own) and returns
 // cudaGetLastError().  kind: 0 raw, 1 packed (no-straddle words), 2 huffman
 // (lut_k / lut_v, hdr_*, probes_*).  ws: float32, B * Hkv * (ceil(NB /
 // kSplit) + 1) * G * (D + 2) elements.
@@ -637,7 +639,9 @@ int fused_kv_attn_launch(const void* q, const void* k_store, const void* k_min,
                          const void* lut_k, const void* lut_v, void* ws, void* out, int B,
                          int Hkv, int G, int D, int T, int NB, int P, int Wk, int Wv, int bits_k,
                          int bits_v, int kind, int hdr_k, int hdr_v, int probes_k,
-                         int probes_v, float scale, void* stream) {
+                         int probes_v, float scale, int device, void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   const bool dims_ok = G >= 1 && G <= kN && D % 8 == 0 && D >= 8 && D <= kMaxDim &&
                        T % 8 == 0 && T >= 8 && T <= kMaxDim && kind >= kRaw && kind <= kHuffman;
   const bool bits_ok = kind != kPacked || (bits_k >= 1 && bits_k <= 8 && bits_v >= 1 && bits_v <= 8);

@@ -557,11 +557,16 @@ const char* huffman_decode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Each launcher runs its kernel on `stream` and returns cudaGetLastError().
+// Each launcher runs its kernel on `stream` of card `device` (selected by the
+// launcher itself, since this library's runtime keeps a current device of its
+// own) and returns cudaGetLastError().
 
 int huffman_decode_launch(const void* payload, const void* nbits, const void* children,
                           const void* is_symbol, const void* symbols, void* out, int NBLK,
-                          int W, int S, int L, int n_nodes, int max_bits, void* stream) {
+                          int W, int S, int L, int n_nodes, int max_bits, int device,
+                          void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   return walk_launch(huffman_decode_kernel, false, payload, nbits, children, is_symbol, symbols,
                      NBLK, W, S, L, n_nodes, max_bits, stream, static_cast<uint8_t*>(out));
 }
@@ -570,7 +575,9 @@ int huffman_attn_scores_launch(const void* payload, const void* nbits, const voi
                                const void* is_symbol, const void* symbols, const void* k_min,
                                const void* k_step, const void* q, void* out, int NBLK, int W,
                                int S, int L, int n_nodes, int max_bits, float scale,
-                               void* stream) {
+                               int device, void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   return walk_launch(huffman_attn_scores_kernel, true, payload, nbits, children, is_symbol,
                      symbols, NBLK, W, S, L, n_nodes, max_bits, stream,
                      static_cast<const float*>(k_min), static_cast<const float*>(k_step),
@@ -583,7 +590,9 @@ int huffman_lut_decode_launch(const void* kslots, const void* klut, const void* 
                               void* kout, int kN, int kW, int khdr, int kprobes,
                               const void* vslots, const void* vlut, const void* vmulti,
                               void* vout, int vN, int vW, int vhdr, int vprobes, int T, int D,
-                              void* stream) {
+                              int device, void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   SlotParams p;
   p.t[0] = SlotTensor{static_cast<const uint32_t*>(kslots), static_cast<const int*>(klut),
                       static_cast<const uint2*>(kmulti), static_cast<uint8_t*>(kout), kN, kW,

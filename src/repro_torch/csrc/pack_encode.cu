@@ -269,14 +269,17 @@ const char* pack_encode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One launch encodes K (and V when n_tensors == 2).  Returns cudaGetLastError().
+// One launch encodes K (and V when n_tensors == 2), on `stream` of card
+// `device` (the launch selects the card itself).  Returns cudaGetLastError().
 int pack_encode_launch(const void* kx, void* kwords, void* kmn, void* kst,
                        int kbits, float krel, int kkivi, int ktoken,
                        const void* vx, void* vwords, void* vmn, void* vst,
                        int vbits, float vrel, int vkivi, int vtoken,
                        const void* slots, int n_tensors, int x_bf16,
                        int B, int H, int n, int T, int D, int NB, int store_batch,
-                       void* stream) {
+                       int device, void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   auto tensor = [&](const void* x, void* words, void* mn, void* st, int bits, float rel,
                     int kivi, int token) {
     const int cpw = 32 / bits, adv = kThreads * cpw;

@@ -36,7 +36,7 @@ NAME = "fused_kv_attn"
 SPLIT_BLOCKS = 1  # ring slots a CTA; the library reports its own (fused_kv_attn_split_blocks)
 MAX_G, MAX_DIM = 8, 128  # one mma n-tile of query rows; D, T at most 8 m-tiles
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 16 + [_I] * 16 + [ctypes.c_float, _P]
+_ARGTYPES = [_P] * 16 + [_I] * 16 + [ctypes.c_float, _I, _P]
 _KINDS = {"raw": 0, "packed": 1, "huffman": 2}
 
 
@@ -106,7 +106,7 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
         out.data_ptr(), B, Hkv, G, D, T, NB, P,
         tile.k_tile[0] if packed else 0, tile.v_tile[0] if packed else 0,
         tile.bits_k, tile.bits_v, _KINDS[tile.kind], tile.hdr_k, tile.hdr_v, tile.probes_k,
-        tile.probes_v, float(scale), runtime.stream_ptr(dev),
+        tile.probes_v, float(scale), *runtime.stream_args(dev),
         count=NAME + ("_huffman" if huff else "") + ("_paged" if paged else ""))
     return out
 

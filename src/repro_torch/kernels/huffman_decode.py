@@ -37,9 +37,9 @@ from repro_torch.kernels.ref import huffman_decode_ref as huffman_decode_plain
 
 NAME = "huffman_decode"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_WALK_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P]
-_SCORES_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F, _P]
-_LUT_ARGTYPES = ([_P] * 4 + [_I] * 4) * 2 + [_I] * 2 + [_P]
+_WALK_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
+_SCORES_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F, _I, _P]
+_LUT_ARGTYPES = ([_P] * 4 + [_I] * 4) * 2 + [_I] * 3 + [_P]
 
 
 def huffman_attn_scores_plain(payload, nbits, children, is_symbol, symbols, k_min, k_step, q,
@@ -85,7 +85,7 @@ def huffman_decode(payload, nbits, children, is_symbol, symbols, n_per_stream: i
         runtime.launch(NAME, _WALK_ARGTYPES, payload.data_ptr(), nbits.data_ptr(),
                        children.data_ptr(), is_symbol.data_ptr(), symbols.data_ptr(),
                        out.data_ptr(), NBLK, W, S, n_per_stream, n_nodes, max_bits,
-                       runtime.stream_ptr(dev))
+                       *runtime.stream_args(dev))
     return out
 
 
@@ -110,7 +110,7 @@ def huffman_attn_scores(payload, nbits, children, is_symbol, symbols, k_min, k_s
                        children.data_ptr(), is_symbol.data_ptr(), symbols.data_ptr(),
                        k_min.data_ptr(), k_step.data_ptr(), q.data_ptr(), out.data_ptr(),
                        NBLK, W, S, D, n_nodes, max_bits, float(scale),
-                       runtime.stream_ptr(dev), count=name, entry=f"{name}_launch")
+                       *runtime.stream_args(dev), count=name, entry=f"{name}_launch")
     return out
 
 
@@ -169,6 +169,6 @@ def _lut_launch(tensors, T: int, D: int) -> tuple:
     if len(tensors) == 1:
         flat += [None, None, None, None, 0, 1, 0, 1]
     if sum(t[0].shape[0] for t in tensors):
-        runtime.launch(NAME, _LUT_ARGTYPES, *flat, T, D, runtime.stream_ptr(dev), count=name,
+        runtime.launch(NAME, _LUT_ARGTYPES, *flat, T, D, *runtime.stream_args(dev), count=name,
                        entry=f"{name}_launch")
     return tuple(outs)

@@ -28,7 +28,7 @@ from repro_torch.kernels.ref import quant_pack_ref
 NAME = "pack_encode"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TENSOR_ARGS = [_P] * 4 + [_I, _F, _I, _I]  # x, words, mn, st, bits, rel, kivi, token
-_ARGTYPES = _TENSOR_ARGS * 2 + [_P] + [_I] * 9 + [_P]
+_ARGTYPES = _TENSOR_ARGS * 2 + [_P] + [_I] * 10 + [_P]
 
 
 def pack_encode_plain(kb, vb, slots, k_store, k_min, k_step, v_store, v_min, v_step,
@@ -120,4 +120,4 @@ def _launch(tensors, slots) -> None:
         flat += [None, None, None, None, 1, 0.0, 0, 0]
     runtime.launch(NAME, _ARGTYPES, *flat, slots.data_ptr(), len(tensors),
                    int(x0.dtype == torch.bfloat16), B, H, n, T, D, NB, Bs,
-                   runtime.stream_ptr(dev))
+                   *runtime.stream_args(dev))

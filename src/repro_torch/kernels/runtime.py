@@ -187,8 +187,13 @@ def launch(name: str, argtypes, *args, count: str | None = None,
     launches[count or name] += 1
 
 
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_args(device: torch.device) -> tuple[int, int]:
+    """(card ordinal, current stream) of ``device``, the last two arguments
+    of every launch entry: the libraries link CUDA's runtime statically, so
+    ``torch.cuda.set_device`` does not reach them, and each launch selects
+    the card that holds its tensors itself."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
 
 
 def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape,

@@ -6,6 +6,7 @@ cache (the port of ``repro.launch.serve``).
     python -m repro_torch.launch.serve --device cpu ...            # no card
     python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b   # MoE (or mixtral_8x22b)
     python -m repro_torch.launch.serve --arch zamba2_7b   # hybrid (or mamba2_1_3b, ssm)
+    python -m repro_torch.launch.serve --mesh 2,2 --device cpu     # sharded, 4 CPU shards
 
 Requests get heterogeneous prompt lengths and token budgets and are pushed
 through the ``api.serve`` Server: slots admit, decode at per-row positions,
@@ -27,6 +28,7 @@ import time
 import numpy as np
 
 from repro_torch import api
+from repro_torch.launch.mesh import make_serve_mesh, parse_mesh_spec
 from repro_torch.models import model as M
 from repro_torch.models import registry
 
@@ -74,9 +76,10 @@ def main(argv=None):
                          "positive multiple of the cache block_size "
                          "(default: 8 blocks)")
     ap.add_argument("--mesh", default=None,
-                    help="dp,tp serving mesh (DESIGN.md §12), e.g. 2,2 "
-                         "(refused: sharded serving is a later slice of the "
-                         "port)")
+                    help="dp,tp serving mesh (DESIGN.md §12), e.g. 2,2: dp "
+                         "shards decode slots and pages, tp KV heads; the "
+                         "first dp*tp cards, or the CPU dp*tp times with "
+                         "--device cpu")
     ap.add_argument("--trace", default="off",
                     choices=["off", "events", "full"],
                     help="scheduler event trace (DESIGN.md §14): events "
@@ -136,24 +139,30 @@ def main(argv=None):
             site, _, prob = spec.partition(":")
             rates[site] = float(prob) if prob else 1.0
         faults = FaultPlan(seed=args.fault_seed, rates=rates)
-    try:
-        server = api.serve(cfg, params, max_slots=args.max_slots,
-                           max_seq=args.max_seq, attn_backend=args.backend,
-                           cache_mode=args.cache_mode,
-                           pool_hbm_bytes=args.pool_bytes,
-                           prefix_cache=args.prefix_cache,
-                           prefill_mode=args.prefill_mode,
-                           prefill_chunk_tokens=args.prefill_chunk,
-                           mesh=args.mesh, trace=args.trace,
-                           max_requeues=args.max_requeues,
-                           max_pending=args.max_pending,
-                           backpressure=args.backpressure,
-                           default_deadline_s=args.deadline,
-                           faults=faults,
-                           audit_every=args.audit_every,
-                           device=args.device)
-    except NotImplementedError as e:  # an option of a later slice (--mesh)
-        ap.error(str(e))
+    mesh = None
+    if args.mesh:
+        # On the CPU every shard is the CPU; on the card, the first dp*tp cards.
+        try:
+            dp, tp = parse_mesh_spec(args.mesh)
+            mesh = make_serve_mesh(args.mesh, devices=(
+                ["cpu"] * (dp * tp) if args.device == "cpu" else None))
+        except (ValueError, RuntimeError) as e:  # a malformed spec, too few cards
+            ap.error(str(e))
+    server = api.serve(cfg, params, max_slots=args.max_slots,
+                       max_seq=args.max_seq, attn_backend=args.backend,
+                       cache_mode=args.cache_mode,
+                       pool_hbm_bytes=args.pool_bytes,
+                       prefix_cache=args.prefix_cache,
+                       prefill_mode=args.prefill_mode,
+                       prefill_chunk_tokens=args.prefill_chunk,
+                       mesh=mesh, trace=args.trace,
+                       max_requeues=args.max_requeues,
+                       max_pending=args.max_pending,
+                       backpressure=args.backpressure,
+                       default_deadline_s=args.deadline,
+                       faults=faults,
+                       audit_every=args.audit_every,
+                       device=args.device)
     rng = np.random.default_rng(0)
     # With the prefix cache enabled, requests share a system-prompt prefix
     # (half of --prompt-len) so the printed hit-rate exercises real reuse.

@@ -24,7 +24,6 @@ from __future__ import annotations
 import zlib
 
 import numpy as np
-import torch
 
 __all__ = [
     "FAULT_SITES", "FaultInjected", "FaultPlan",
@@ -139,17 +138,19 @@ class InvariantAuditor:
     drives admission without reading the device.  The auditor recomputes
     each fact and reports every disagreement:
 
-    1.  **Pool partition**: ``free + live == n_pages``, the free list holds
-        no duplicate and no live page, every live page has refcount >= 1.
+    1.  **Pool partition**, per shard pool: ``free + live == n_pages``, the
+        free list holds no duplicate and no live page, every live page has
+        refcount >= 1.
     2.  **Refcount balance**: every page's refcount equals the row
         page-table entries that reference it (decoding *and* PREFILLING
-        rows) plus the prefix-index nodes that hold it.
-    3.  **Aliasing**: no row references one page twice.  (The port serves
-        one shard, so the reference's shard-affinity check has nothing to
-        check.)
+        rows) plus the prefix-index nodes (of every shard's index) that hold
+        it.
+    3.  **Aliasing and affinity**: no row references one page twice, and a
+        row's pages all come from its own data shard's pool.
     4.  **Host and device page tables**: a decoding row's device row equals
-        the host mirror on every layer; PREFILLING and free rows are fully
-        unassigned (-1) on the device (the write-drop guarantee).
+        the host mirror on every layer (and, under a mesh, on every model
+        shard, in global ids); PREFILLING and free rows are fully unassigned
+        (-1) on the device (the write-drop guarantee).
     5.  **Slot/queue/task accounting**: slots and prefill tasks are
         disjoint, no finished handle is still scheduled, no handle appears
         twice, ``pending`` matches the queue.
@@ -163,6 +164,10 @@ class InvariantAuditor:
         self.server = server
         self.audits = 0
         self.violations: list[str] = []
+
+    def _shard_pools(self) -> list:
+        pool = self.server.pool
+        return list(getattr(pool, "shards", [pool]))
 
     def _scheduled_rows(self) -> tuple[set, set]:
         srv = self.server
@@ -208,25 +213,26 @@ class InvariantAuditor:
         bad: list[str] = []
         pt = srv._pt_host
         B = pt.shape[0]
-        pool = srv.pool
 
-        # 1. pool partition
-        free = pool._free
-        if len(set(free)) != len(free):
-            bad.append("pool: duplicate free pages")
-        overlap = set(free) & pool._live
-        if overlap:
-            bad.append(f"pool: pages both free and live: {sorted(overlap)[:8]}")
-        if pool.free_pages + pool.live_pages != pool.n_pages:
-            bad.append(f"pool: free({pool.free_pages}) + live({pool.live_pages}) "
-                       f"!= n_pages({pool.n_pages})")
-        if set(pool._ref) != pool._live:
-            bad.append("pool: refcount keys != live set")
-        for p, c in pool._ref.items():
-            if c < 1:
-                bad.append(f"pool: live page {p} has refcount {c}")
+        # 1. pool partition, per shard pool
+        for pool in self._shard_pools():
+            at = f"pool@{pool.offset}"
+            free = pool._free
+            if len(set(free)) != len(free):
+                bad.append(f"{at}: duplicate free pages")
+            overlap = set(free) & pool._live
+            if overlap:
+                bad.append(f"{at}: pages both free and live: {sorted(overlap)[:8]}")
+            if pool.free_pages + pool.live_pages != pool.n_pages:
+                bad.append(f"{at}: free({pool.free_pages}) + live({pool.live_pages}) "
+                           f"!= n_pages({pool.n_pages})")
+            if set(pool._ref) != pool._live:
+                bad.append(f"{at}: refcount keys != live set")
+            for p, c in pool._ref.items():
+                if c < 1:
+                    bad.append(f"{at}: live page {p} has refcount {c}")
 
-        # 2./3. refcount balance and aliasing
+        # 2./3. refcount balance, aliasing and shard affinity
         expected: dict[int, int] = {}
         scheduled = live_rows | task_rows
         for row in range(B):
@@ -239,21 +245,33 @@ class InvariantAuditor:
             if len(set(pages.tolist())) != len(pages):
                 bad.append(f"row {row} references a page twice: "
                            f"{pages.tolist()}")
+            own = srv._shard_pool(row)
             for p in pages.tolist():
                 expected[p] = expected.get(p, 0) + 1
-        if srv.index is not None:
-            for p in srv.index.indexed_pages():
+                if not own.owns(p):
+                    bad.append(f"row {row} (shard {srv._row_shard(row)}) references "
+                               f"foreign page {p}")
+        for ix in srv._indexes:
+            for p in ix.indexed_pages():
                 expected[p] = expected.get(p, 0) + 1
-        actual = dict(pool._ref)
+        actual = {}
+        for pool in self._shard_pools():
+            actual.update(pool._ref)
         for p in sorted(set(expected) | set(actual)):
             e, a = expected.get(p, 0), actual.get(p, 0)
             if e != a:
                 bad.append(f"page {p}: pool refcount {a} but "
                            f"{e} referencing owners (rows + index nodes)")
 
-        # 4. device page tables mirror the host (every layer)
-        stacked = torch.stack([c.page_tab for c in srv.state["kv"]]).cpu().numpy()
-        tabs = [(stacked[i].astype(np.int64), f"layer{i}") for i in range(len(stacked))]
+        # 4. device page tables mirror the host (every layer; under a mesh
+        # every model shard's, in global ids)
+        tabs = []
+        for i, c in enumerate(srv.state["kv"]):
+            if srv.mesh is None:
+                tabs.append((c.page_tab.cpu().numpy().astype(np.int64), f"layer{i}"))
+            else:
+                tabs += [(t.cpu().numpy().astype(np.int64), f"layer{i}.model{m}")
+                         for m, t in enumerate(c.global_page_tabs())]
         for dev, name in tabs:
             for row in range(B):
                 want = pt[row] if row in live_rows else np.full_like(pt[row], -1)

@@ -72,11 +72,19 @@ of every scheduler decision, stamped with the same floats the ``Result``
 timings come from; ``Server.shutdown`` exports the JSON snapshot, its
 Prometheus text and the Perfetto-loadable Chrome trace.
 
+``ServerConfig.mesh`` (DESIGN.md §12) serves a dense or MoE model over a
+``("data", "model")`` mesh of torch devices (``launch.mesh.
+make_serve_mesh``): every layer's live cache is split into one cache a
+shard (``distributed.serve_shard``), the rows over "data", the KV heads
+over "model", each data shard with its own page pool and prefix index; a
+row's pages all come from its shard, and the Fetch and Store run shard by
+shard.  PREFILLING rows chunk on a private batch-1 state spliced into the
+row's shard at the finish (the dense-state path, as in the reference).
+The dense layers run once over the whole batch on the mesh's first device,
+so greedy tokens equal the single-device server's.  A 1x1 mesh is no mesh.
+
 The server is cooperative: ``Handle.result`` / ``Handle.tokens`` pump
 ``Server.step`` until their request completes; ``Server.run`` drains.
-
-Sharding, the option of a later slice of the port, raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -92,6 +100,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import pool as blockpool
+from repro_torch.distributed import serve_shard
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -127,12 +136,6 @@ class Result:
     error: str | None = None
 
 
-# Options of later slices: field -> (the value this slice serves, the slice).
-_LATER = {
-    "mesh": (None, "multi-GPU sharded serving"),
-}
-
-
 @dataclasses.dataclass
 class ServerConfig:
     max_slots: int = 8   # concurrent decode rows (the batch of the live state)
@@ -153,7 +156,11 @@ class ServerConfig:
     # admission with lookup and insert disabled: the accounting baseline,
     # bit-identical to "on").
     prefix_cache: str = "off"
-    mesh: object | None = None     # a later slice
+    # A ("data", "model") serving mesh (launch.mesh.make_serve_mesh): "data"
+    # shards decode slots, page tables and the arena's pages (a page pool
+    # and a prefix index a data shard), "model" shards KV heads inside
+    # attention.  None (or a 1x1 mesh) serves on one device.
+    mesh: object | None = None
     # "chunked" interleaves prompt chunks with decode; "solo" drains every
     # chunk at admission (the blocking baseline, same tokens).
     prefill_mode: str = "chunked"
@@ -184,11 +191,6 @@ class ServerConfig:
     stall_steps: int = 256
 
     def __post_init__(self):
-        for name, (served, where) in _LATER.items():
-            if getattr(self, name) != served:
-                raise NotImplementedError(
-                    f"ServerConfig.{name}={getattr(self, name)!r} belongs to a "
-                    f"later slice of the port ({where})")
         if self.cache_mode not in (None, "dense", "paged"):
             raise ValueError(f"cache_mode must be dense|paged, got {self.cache_mode!r}")
         if self.prefill_mode not in ("chunked", "solo"):
@@ -424,8 +426,32 @@ class Server:
         self._progress = 0   # bumps on any token, chunk, admission, retirement
         self._stall = 0      # consecutive steps with work left and no progress
         self._has_deadlines = scfg.default_deadline_s is not None
-        # One data shard, under the reference's name.
-        self._preempt_shard0 = self.metrics.counter("serve.shard0.preemptions")
+
+        # Multi-device serving (DESIGN.md §12): a 1x1 mesh is no mesh, so one
+        # device runs exactly the unsharded path.
+        mesh = scfg.mesh
+        self._n_data = self._n_model = 1
+        if mesh is not None:
+            n_d, n_m = serve_shard.mesh_counts(mesh)
+            if n_d * n_m <= 1:
+                mesh = None
+            else:
+                self._n_data, self._n_model = serve_shard.validate_serve_mesh(mesh, cfg, B)
+                home = mesh.devices.flat[0]
+                if home.type != self.device.type:
+                    raise ValueError(f"the mesh's first device {home} is not where the "
+                                     f"server runs ({self.device})")
+                self.device = home
+        self.mesh = mesh
+        # The backend each shard runs: what the unsharded server dispatches.
+        self._inner_backend = cfg.attn_backend
+        self._slots_per_shard = B // self._n_data
+        self._preempt_by_shard = [self.metrics.counter(f"serve.shard{d}.preemptions")
+                                  for d in range(self._n_data)]
+        # The live state's operations: models.model's, or the same shard by shard.
+        self._ops = serve_shard if mesh is not None else M
+        if mesh is not None:
+            serve_shard.set_serve_mesh(mesh, self._inner_backend)
 
         # The dense twin of every cache layer's spec.  Block-chunked
         # admission (the reference's unified path) needs a pure-KV family and
@@ -464,15 +490,26 @@ class Server:
             if pool_bytes is None:
                 pool_bytes = B * nb * sum(per_layer)  # the dense-equivalent footprint
             n_pages = int(pool_bytes // max(sum(per_layer), 1))
+            # The page axis splits evenly over the data shards (each shard's
+            # pool owns a contiguous id range): round down to a multiple.
+            n_pages -= n_pages % self._n_data
             if n_pages < 1:
                 raise ValueError(
-                    f"pool_hbm_bytes={pool_bytes} holds no page (one page across "
-                    f"layers is {sum(per_layer)} bytes)")
-            self.pool = blockpool.PagedBlockPool(n_pages, per_layer)
-            # The unsharded pool is shard 0, under the reference's names.
-            self.metrics.register("pool.shard0.high_water_pages", self.pool.m_high_water)
-            self.metrics.register("pool.shard0.alloc_pages", self.pool.m_alloc_pages)
-            self.metrics.register("pool.shard0.freed_pages", self.pool.m_freed_pages)
+                    f"pool_hbm_bytes={pool_bytes} holds no page per data shard (one "
+                    f"page across layers is {sum(per_layer)} bytes, {self._n_data} "
+                    "shard(s))")
+            if self._n_data > 1:
+                self.pool = serve_shard.ShardedPagedPool(n_pages, per_layer, self._n_data)
+                shard_pools = self.pool.shards
+            else:
+                self.pool = blockpool.PagedBlockPool(n_pages, per_layer)
+                shard_pools = [self.pool]
+            # One metric tree whatever the sharding: the unsharded pool is
+            # shard 0.
+            for d, sp in enumerate(shard_pools):
+                self.metrics.register(f"pool.shard{d}.high_water_pages", sp.m_high_water)
+                self.metrics.register(f"pool.shard{d}.alloc_pages", sp.m_alloc_pages)
+                self.metrics.register(f"pool.shard{d}.freed_pages", sp.m_freed_pages)
             # Host mirror of the device page tables (one logical table shared
             # by every layer): rows index slots, entries are pages.
             self._pt_host = np.full((B, nb), -1, np.int64)
@@ -480,6 +517,8 @@ class Server:
                                              pool_pages=n_pages)
         else:
             self.state = M.init_decode_state(cfg, B, scfg.max_seq, device=self.device)
+        if mesh is not None:
+            self.state = serve_shard.shard_state(self.state, mesh)
 
         if scfg.prefix_cache not in ("off", "on", "noshare"):
             raise ValueError(
@@ -487,6 +526,7 @@ class Server:
         self.prefix_mode = scfg.prefix_cache != "off"
         self._share = scfg.prefix_cache == "on"
         self.index = None
+        self._indexes: list[PrefixIndex] = []
         if self.prefix_mode:
             if not self.paged:
                 raise ValueError(
@@ -497,12 +537,15 @@ class Server:
                     "prefix_cache needs a pure-KV decode state (block-chunked "
                     f"prefill has no {cfg.family!r} step)")
             if self._share:
-                # One index (one data shard), under the reference's names.
-                self.index = PrefixIndex(self._chunk_t)
-                self.metrics.register("prefix.index.shard0.inserted_blocks",
-                                      self.index.m_inserted_blocks)
-                self.metrics.register("prefix.index.shard0.evicted_blocks",
-                                      self.index.m_evicted_blocks)
+                # One index a data shard: a table can only point at its own
+                # shard's pages, so a prefix is reusable by that shard's rows.
+                self._indexes = [PrefixIndex(self._chunk_t) for _ in range(self._n_data)]
+                self.index = self._indexes[0]
+                for d, ix in enumerate(self._indexes):
+                    self.metrics.register(f"prefix.index.shard{d}.inserted_blocks",
+                                          ix.m_inserted_blocks)
+                    self.metrics.register(f"prefix.index.shard{d}.evicted_blocks",
+                                          ix.m_evicted_blocks)
             self._pfx = {k: self.metrics.counter(f"prefix.{k}")
                          for k in ("lookups", "hits", "hit_blocks", "reused_tokens",
                                    "prefill_tokens", "prefill_attn_pairs", "resumes",
@@ -520,12 +563,15 @@ class Server:
                 f"({request.max_new_tokens}) exceeds max_seq {self.scfg.max_seq}")
         if self.paged:
             # A request must be able to run SOLO: the most pages it can ever
-            # hold has to fit the pool, or no amount of preemption admits it.
+            # hold has to fit its data shard's pool (a row allocates from its
+            # own shard only), or no amount of preemption admits it.
             need = self._lifetime_pages(request)
-            if need > self.pool.n_pages:
+            cap = self.pool.n_pages if self._n_data == 1 else self.pool.per_shard
+            if need > cap:
                 raise ValueError(
-                    f"request needs up to {need} block pages but the pool holds "
-                    f"{self.pool.n_pages}; raise ServerConfig.pool_hbm_bytes")
+                    f"request needs up to {need} block pages but "
+                    f"{'each data shard' if self._n_data > 1 else 'the pool'} holds "
+                    f"{cap}; raise ServerConfig.pool_hbm_bytes")
         if request.deadline_s is not None:
             if request.deadline_s <= 0:
                 raise ValueError(f"deadline_s must be > 0, got {request.deadline_s}")
@@ -580,6 +626,32 @@ class Server:
     def preemptions(self) -> int:
         """Total rows evicted and requeued."""
         return self._preemptions.value
+
+    # -- shard-local page accounting (DESIGN.md §12) ---------------------------
+    # Slot ``row`` lives on data shard ``row // (max_slots / n_data)``, and
+    # all of a row's pages come from that shard's pool.
+    def _row_shard(self, row: int) -> int:
+        return row // self._slots_per_shard if self._n_data > 1 else 0
+
+    def _shard_pool(self, row: int):
+        """The row's allocator: the flat pool unsharded, else its shard's."""
+        if self._n_data == 1:
+            return self.pool
+        return self.pool.shards[self._row_shard(row)]
+
+    def _shard_free(self, shard: int) -> int:
+        if self._fault("pool_alloc"):
+            return 0  # injected exhaustion: callers take the reclaim ladder
+        if self._n_data == 1:
+            return self.pool.free_pages
+        return self.pool.shards[shard].free_pages
+
+    def _alloc(self, n: int, row: int) -> list[int]:
+        return self._shard_pool(row).alloc(n)
+
+    def _index_for(self, row: int) -> PrefixIndex:
+        """The prefix index of the row's data shard (sharing on)."""
+        return self._indexes[self._row_shard(row)]
 
     # -- request lifecycle: failure isolation, cancel, deadlines ----------------
     def _fault(self, site: str) -> bool:
@@ -678,22 +750,24 @@ class Server:
             return h
         return self._queue.popleft()
 
-    def _can_admit(self, handle: Handle) -> bool:
-        """Memory-pressure admission (paged): the pages the first step's
-        chunks flush (the full-length admission: the prompt's blocks), plus
-        one page of decode headroom, must be free.  Not the request's whole
-        lifetime: that is what lets slots oversubscribe, and preemption
-        covers the over-commitment later.  With sharing on, the prefix
-        index's hit is stashed on the handle and discounted (its blocks are
-        spliced, not prefilled), and cold index blocks are evicted before
-        the queue head is parked."""
+    def _can_admit(self, handle: Handle, row: int) -> bool:
+        """Memory-pressure admission (paged), on the row's data shard: the
+        pages the first step's chunks flush (the whole prompt's blocks where
+        they accumulate in a private state: under a mesh, and in the
+        full-length admission), plus one page of decode headroom, must be
+        free.  Not the request's whole lifetime: that is what lets slots
+        oversubscribe, and preemption covers the over-commitment later.
+        With sharing on, the shard's prefix index's hit is stashed on the
+        handle and discounted (its blocks are spliced, not prefilled), and
+        cold index blocks are evicted before the queue head is parked."""
         if not self.paged:
             return True
         if self._fault("pool_alloc"):
             return False  # injected exhaustion: park the queue head
+        shard_pool = self._shard_pool(row)
         if not self.prefill_unified:
-            need = min(self._prefill_pages(handle.request) + 1, self.pool.n_pages)
-            return self.pool.free_pages >= need
+            need = min(self._prefill_pages(handle.request) + 1, shard_pool.n_pages)
+            return shard_pool.free_pages >= need
         T, nb = self._spec0.block_size, self._spec0.n_blocks
         forced = self._forced(handle)
         n_full = len(forced) // T
@@ -701,20 +775,20 @@ class Server:
         if self._share and n_full <= nb:
             # Cap below the forced length so one token is left to run: its
             # logits give the next token.
-            hit = self.index.lookup(forced, min((len(forced) - 1) // T, nb))
+            hit = self._index_for(row).lookup(forced, min((len(forced) - 1) // T, nb))
         handle._hit_pages = hit
         occupied = max(min(n_full, nb) - len(hit), 0)
-        if self.prefill_chunked:
+        if self.prefill_chunked and self.mesh is None:
             # Pages are reserved one chunk ahead of each flush, so a long
             # prompt can start before the pool could hold all of it.
             occupied = min(self._chunk_budget // T, occupied)
-        need = min(occupied + 1, self.pool.n_pages)
-        if (self.pool.free_pages < need and self._share
+        need = min(occupied + 1, shard_pool.n_pages)
+        if (shard_pool.free_pages < need and self._share
                 and not self._fault("prefix_evict")):
             # The hit path was just stamped most recent, and is protected as
             # well: the row does not hold its pages yet.
-            self.index.evict(self.pool, need, protect=hit)
-        return self.pool.free_pages >= need
+            self._index_for(row).evict(shard_pool, need, protect=hit)
+        return shard_pool.free_pages >= need
 
     def _admit(self, handle: Handle, row: int) -> bool:
         """The full-length admission of the families without a chunk step
@@ -749,11 +823,11 @@ class Server:
         if self.paged:
             n_blk = self._prefill_pages(req)
             pages = np.full(self._spec0.n_blocks, -1, np.int64)
-            pages[:n_blk] = self.pool.alloc(n_blk)  # _can_admit checked they are free
+            pages[:n_blk] = self._alloc(n_blk, row)  # _can_admit checked they are free
             self._pt_host[row] = pages
-            M.insert_decode_row_paged(self.state, solo, row, self._device_pages(row))
+            self._ops.insert_decode_row_paged(self.state, solo, row, self._device_pages(row))
         else:
-            M.insert_decode_row(self.state, solo, row)
+            self._ops.insert_decode_row(self.state, solo, row)
         self._slots[row] = handle
         self._cur[row] = first
         self._pos[row] = len(req.prompt)
@@ -763,9 +837,13 @@ class Server:
         return True
 
     def _start_prefill(self, handle: Handle, row: int) -> None:
-        """Claim slot ``row`` as a PREFILLING task: a private batch-1 state
-        (dense) or the live arena (paged), with any prefix hit spliced into
-        the row's page table and retained as the row's own references."""
+        """Claim slot ``row`` as a PREFILLING task: the live arena (paged on
+        one device) or a private batch-1 state (dense, or paged under a
+        mesh), with any prefix hit spliced into the row's page table and
+        retained as the row's own references.  The private state of a paged
+        row is seeded from the hit's pages, and the pages of the prompt's
+        whole blocks are reserved up front, on the row's data shard: its
+        blocks reach them only at the finishing splice."""
         forced = self._forced(handle)
         n = len(forced)
         hit, handle._hit_pages = handle._hit_pages, []
@@ -780,14 +858,26 @@ class Server:
             if j:
                 self._tr.emit("prefix_hit", req=handle.id, blocks=j)
         state = None
-        if self.paged:
+        fused = self.paged and self.mesh is None
+        nb = self._spec0.n_blocks
+        if j:
+            self.pool.retain(hit)
+        if not fused:
             if j:
-                self.pool.retain(hit)
-            pages = np.full(self._spec0.n_blocks, -1, np.int64)
-            pages[:j] = hit  # the rest is reserved one chunk ahead
+                seed = np.full(nb, -1, np.int64)
+                seed[:j] = hit
+                state = self._ops.gather_prefix_state(
+                    self.state, torch.as_tensor(seed, dtype=torch.int32), j)
+            else:
+                state = M.init_decode_state(self.cfg, 1, self.scfg.max_seq,
+                                            device=self.device)
+        if self.paged:
+            pages = np.full(nb, -1, np.int64)
+            pages[:j] = hit  # fused: the rest is reserved one chunk ahead
+            occupied = min(n // self._chunk_t, nb)
+            if not fused and occupied > j:
+                pages[j:occupied] = self._alloc(occupied - j, row)
             self._pt_host[row] = pages
-        else:
-            state = M.init_decode_state(self.cfg, 1, self.scfg.max_seq, device=self.device)
         if self.prefix_mode:
             if self._share:
                 self._pfx["lookups"].inc()
@@ -819,9 +909,9 @@ class Server:
         existing = int(self._pt_host[row, slot])
         if existing >= 0 and self.pool.refcount(existing) == 1:
             return -1  # ring wrap: overwrite our exclusive page
-        if self._fault("pool_alloc") or not self.pool.free_pages:
+        if not self._shard_free(self._row_shard(row)):
             return None  # (an injected fault reads as a full pool)
-        page = self.pool.alloc(1)[0]
+        page = self._alloc(1, row)[0]
         req = self._req_at(row) if self._tr is not None else -1
         if existing >= 0:  # shared: only in prefix mode
             self.pool.release([existing])
@@ -841,19 +931,22 @@ class Server:
         return task.handle.id if task is not None else self._slots[row].id
 
     def _reclaim(self, row: int) -> int | None:
-        """The rest of the ladder once the pool reads as full: evict one cold
-        index block (None: retry the claim), else the preemption victim, the
-        youngest row that holds pages (-1 when the sweep finds none)."""
+        """The rest of the ladder once the row's shard reads as full: evict
+        one cold block of the shard's index (None: retry the claim), else the
+        preemption victim, the youngest row of the same shard that holds
+        pages (only its pages relieve this row; -1 when the sweep finds
+        none)."""
         if self._share and not self._fault("prefix_evict"):
-            ev = self.index.evict(self.pool, 1)
+            ev = self._index_for(row).evict(self._shard_pool(row), 1)
             if ev:
                 if self._tr is not None:
                     self._tr.emit("prefix_evict", blocks=ev)
                 return None
         if self._fault("reclaim_sweep"):
             return -1
+        shard = self._row_shard(row)
         return next((r for r in reversed(self._live_rows_by_age())
-                     if (self._pt_host[r] >= 0).any()), -1)
+                     if self._row_shard(r) == shard and (self._pt_host[r] >= 0).any()), -1)
 
     def _ensure_chunk_page(self, task: _PrefillTask, pos: int) -> bool:
         """Paged: the full chunk at ``pos`` flushes one block, so its ring slot
@@ -974,10 +1067,11 @@ class Server:
         return torch.as_tensor(self._pt_host[row], dtype=torch.int32, device=self.device)
 
     def _finish_task(self, task: _PrefillTask, first: int) -> None:
-        """The last chunk ran: make the row a decode slot (dense: splice the
-        private state in; paged: the finishing chunk already installed it
-        and, with sharing on, its full prompt blocks enter the index), or
-        retire at once on a budget of 1 / instant EOS."""
+        """The last chunk ran: make the row a decode slot (a private state is
+        spliced in, into the row's reserved pages when paged; the live
+        arena's finishing chunk already installed the row; with sharing on,
+        its full prompt blocks enter its shard's index), or retire at once
+        on a budget of 1 / instant EOS."""
         handle, row = task.handle, task.row
         del self._prefill_tasks[row]
         if handle._t_start is None:
@@ -992,12 +1086,15 @@ class Server:
             return
         if self.paged:
             n_full = task.n // self._chunk_t
+            if task.state is not None:
+                self._ops.insert_decode_row_paged(self.state, task.state, row,
+                                                  self._device_pages(row))
             if (self._share and n_full and n_full <= self._spec0.n_blocks
                     and not self._fault("prefix_insert")):
-                self.index.insert(task.forced, self._pt_host[row][:n_full].tolist(),
-                                  self.pool)
+                self._index_for(row).insert(task.forced,
+                                            self._pt_host[row][:n_full].tolist(), self.pool)
         else:
-            M.insert_decode_row(self.state, task.state, row)
+            self._ops.insert_decode_row(self.state, task.state, row)
         self._slots[row] = handle
         self._cur[row] = first
         self._pos[row] = task.n
@@ -1041,14 +1138,15 @@ class Server:
         them, and under MoE its routing shares the batch's expert capacity
         with the live rows."""
         self._release_host_pages(row)
-        M.clear_cache_row(self.state, row)
+        self._ops.clear_cache_row(self.state, row)
 
     def _park(self, row: int, tokens, flushed: int) -> None:
         """Sharing on: put the row's first ``flushed`` blocks into the index
         before its references drop, so re-admission resumes from them."""
         if (self._share and 0 < flushed <= self._spec0.n_blocks
                 and not self._fault("prefix_insert")):
-            self.index.insert(tokens, self._pt_host[row][:flushed].tolist(), self.pool)
+            self._index_for(row).insert(tokens, self._pt_host[row][:flushed].tolist(),
+                                        self.pool)
 
     def _preempt(self, row: int, why: str | None = None) -> None:
         """Evict a live or prefilling request and requeue it at the head.
@@ -1082,11 +1180,14 @@ class Server:
         task = self._prefill_tasks.pop(row, None)
         if task is not None:
             if self.paged:
-                # Every full chunk so far flushed its block into this row's
-                # pages (a half-prefilled row's device row was never
-                # installed, so only the host side releases).
-                self._park(row, task.forced,
-                           min(task.pos // T, len(handle.request.prompt) // T))
+                # Through the live arena, every full chunk so far flushed its
+                # block into this row's pages; a private state's blocks never
+                # reached them (they die with it), so nothing is parked.  A
+                # half-prefilled row's device row was never installed, so
+                # only the host side releases.
+                if task.state is None:
+                    self._park(row, task.forced,
+                               min(task.pos // T, len(handle.request.prompt) // T))
                 self._release_host_pages(row)
             self._pf["prefill_preemptions"].inc()
         else:
@@ -1099,7 +1200,7 @@ class Server:
         handle._toks.clear()
         self._queue.appendleft(handle)
         self._preemptions.inc()
-        self._preempt_shard0.inc()
+        self._preempt_by_shard[self._row_shard(row)].inc()
         if self._tr is not None:
             self._tr.emit("preempt", req=handle.id, row=row, prefilling=task is not None)
 
@@ -1145,7 +1246,7 @@ class Server:
         if grants:
             rows, slots, pages = (torch.as_tensor(x, device=self.device)
                                   for x in zip(*grants))
-            M.assign_cache_pages(self.state, rows, slots, pages.to(torch.int32))
+            self._ops.assign_cache_pages(self.state, rows, slots, pages.to(torch.int32))
 
     # -- the step ---------------------------------------------------------------
     def step(self) -> bool:
@@ -1187,6 +1288,9 @@ class Server:
         return more
 
     def _step_inner(self) -> bool:
+        if self.mesh is not None:
+            # Another Server may have rebound the inner backend since.
+            serve_shard.set_serve_mesh(self.mesh, self._inner_backend)
         free = [i for i, s in enumerate(self._slots)
                 if s is None and i not in self._prefill_tasks]
         decoding = any(s is not None for s in self._slots)
@@ -1198,8 +1302,13 @@ class Server:
             budget = self._run_prefill_budget(budget, decoding)
         while free and self._queue:
             handle = self._pop_next()
-            row = free[0]
-            if not self._can_admit(handle):
+            if self.paged and self._n_data > 1:
+                # The free slot whose data shard has the most free pages (a
+                # slot pins its row to a shard); ties go to the lowest row.
+                row = min(free, key=lambda r: (-self._shard_free(self._row_shard(r)), r))
+            else:
+                row = free[0]
+            if not self._can_admit(handle, row):
                 self._queue.appendleft(handle)  # pool pressure: park it
                 break
             if not self.prefill_unified:
@@ -1261,10 +1370,12 @@ class Server:
 
     def memory_report(self) -> dict:
         """Measured bytes of the live decode state (all slots; in paged mode
-        the whole arena and the page tables): ``kv_bytes`` the KV caches,
+        the whole arena and the page tables; under a mesh, the same bytes
+        summed over the shards): ``kv_bytes`` the KV caches,
         ``total_bytes`` those plus the SSM states."""
-        kv = sum(getattr(c, f).numel() * getattr(c, f).element_size()
-                 for c in self.state.get("kv", ()) for f in c.FIELDS)
+        kv = sum(c.nbytes() if self.mesh is not None else
+                 sum(getattr(c, f).numel() * getattr(c, f).element_size() for f in c.FIELDS)
+                 for c in self.state.get("kv", ()))
         other = sum(t.numel() * t.element_size()
                     for key in ("ssm", "ssm_tail") for t in _leaves(self.state.get(key)))
         return {"total_bytes": int(kv + other), "kv_bytes": int(kv),
@@ -1272,8 +1383,9 @@ class Server:
 
     def stats(self) -> dict:
         """Serving stats: a view over ``self.metrics``, with the reference's
-        key tree (``pool`` in paged mode, ``prefix`` in prefix mode; ``shards``
-        with one entry, as an unsharded reference server reports)."""
+        key tree, one schema whatever the mesh (``pool`` in paged mode, with
+        ``per_shard``; ``prefix`` in prefix mode; ``shards`` with one entry a
+        data shard, one unsharded)."""
         self._g_active.set(self.active)
         self._g_pending.set(self.pending)
         s = {
@@ -1301,19 +1413,27 @@ class Server:
             "lifecycle": {"submitted": self._next_req_id,
                           **{k: c.value for k, c in self._lc.items()}},
         }
-        shard = {"preemptions": self._preempt_shard0.value}
+        per_pool = None
         if self.paged:
-            ps = self.pool.stats()
-            s["pool"] = {**ps, "per_shard": [ps]}
-            shard.update(pages_live=ps["pages_live"], pages_free=ps["pages_free"],
-                         high_water_pages=ps["high_water_pages"])
-        s["shards"] = {"n_data": 1, "n_model": 1, "per_shard": [shard]}
+            per_pool = (self.pool.shard_stats() if self._n_data > 1
+                        else [self.pool.stats()])
+            s["pool"] = {**self.pool.stats(), "per_shard": per_pool}
+        s["shards"] = {
+            "n_data": self._n_data,
+            "n_model": self._n_model,
+            "per_shard": [
+                {"preemptions": self._preempt_by_shard[d].value,
+                 **({k: per_pool[d][k] for k in ("pages_live", "pages_free",
+                                                  "high_water_pages")}
+                    if per_pool is not None else {})}
+                for d in range(self._n_data)],
+        }
         if self.prefix_mode:
             p = {k: c.value for k, c in self._pfx.items()}
             p["mode"] = self.scfg.prefix_cache
             p["hit_rate"] = (p["hits"] / p["lookups"]) if p["lookups"] else 0.0
             if self._share:
-                p["index"] = PrefixIndex.merge_stats([self.index])
+                p["index"] = PrefixIndex.merge_stats(self._indexes)
             s["prefix"] = p
         return s
 

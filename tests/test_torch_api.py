@@ -6,7 +6,7 @@ Fetch, held against the reference on the CPU:
   layouts, ``register_layout``, per-layer policies;
 * ``decompress`` within 1e-6 of the reference's on the same cache state,
   and raising where the reference raises;
-* ``api.serve``: the reference's keywords, ``mesh`` refused.
+* ``api.serve``: the reference's keywords, ``mesh`` served (a bad one refused).
 
 The offline quantizers and ``estimate_ratio`` are in
 ``tests/test_torch_quant.py``.
@@ -263,7 +263,18 @@ def test_serve_takes_the_reference_keywords_and_refuses_a_mesh():
     assert isinstance(server, api.Server) and server.trace.level == "events"
     h = server.submit(api.Request(prompt=np.arange(9, dtype=np.int32), max_new_tokens=2))
     assert len(h.result().tokens) == 2
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.serve(cfg, params, mesh=object(), device="cpu")
+    # A mesh serves (four logical shards on the CPU), with the unsharded
+    # tokens; a mesh the model cannot split raises the reference's error.
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    prompt = np.arange(9, dtype=np.int32)
+    sharded = api.serve(cfg, params, max_slots=2, max_seq=64, device="cpu",
+                        mesh=make_serve_mesh("2,2", devices=["cpu"] * 4))
+    assert sharded.stats()["shards"]["n_data"] == 2
+    assert (sharded.submit(api.Request(prompt=prompt, max_new_tokens=2)).result().tokens
+            .tolist() == h.result().tokens.tolist())
+    with pytest.raises(ValueError, match="must divide n_kv_heads"):
+        api.serve(cfg, params, mesh=make_serve_mesh("1,4", devices=["cpu"] * 4),
+                  device="cpu")
     with pytest.raises(ValueError, match="trace must be"):
         api.serve(cfg, params, trace="verbose", device="cpu")

@@ -110,9 +110,19 @@ def test_cli_refuses_the_encoder_only_arch(capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mesh", "1,1"], "later slice of the port (multi-GPU sharded serving)"),
+    (["--mesh", "1,1"], None),
+    (["--mesh", "2"], "--mesh wants 'dp,tp' (two integers)"),
 ])
 def test_cli_refuses_options_of_later_slices(argv, what, capsys):
+    """``--mesh`` is served now: ``1,1`` is the unsharded path (the dense
+    run's tokens, one shard in the stats), and only a malformed spec exits
+    2."""
+    if what is None:
+        results = launch.main(BASE + argv)
+        assert "shards: data=1 model=1" in capsys.readouterr().out
+        assert [r.tokens.tolist() for r in results] == _expected_tokens(
+            "packed", "off", {"cache_mode": "dense"})
+        return
     with pytest.raises(SystemExit) as e:
         launch.main(BASE + argv)
     assert e.value.code == 2

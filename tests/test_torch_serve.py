@@ -155,15 +155,11 @@ def test_entry_points_need_cuda_unless_told(setup, monkeypatch):
     ("trace", "events"), ("faults", object()), ("audit_every", 2),
     ("max_pending", 4), ("default_deadline_s", 1.0)])
 def test_later_slice_options_raise(field, value):
-    """Options of later slices (sharding) raise; the prefix cache, the
-    lifecycle options and the event trace, once refused here, are served
-    now."""
-    if field in TS._LATER:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TS.ServerConfig(**{field: value})
-    else:
-        assert getattr(TS.ServerConfig(**{field: value}), field) is value
-    assert set(TS._LATER) == {"mesh"}
+    """Options once refused here as those of later slices are all served
+    now: the prefix cache, the lifecycle options, the event trace and the
+    mesh (the Server checks a mesh against the model)."""
+    assert getattr(TS.ServerConfig(**{field: value}), field) is value
+    assert not hasattr(TS, "_LATER")
 
 
 def test_request_deadline_raises(setup):
