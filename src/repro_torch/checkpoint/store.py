@@ -11,7 +11,11 @@ Layout (one directory a step)::
 * A crash mid-write leaves only a ``.tmp`` directory, which ``restore`` and
   ``latest_step`` ignore and ``gc_old`` removes.
 * ``restore`` loads on the host and moves each leaf to the device of the
-  template's leaf (or to ``device``).
+  template's leaf (or to ``device``); given ``shardings`` (a tree of
+  ``distributed.sharding.NamedSharding``) it places each leaf as pieces on
+  that mesh: the elastic restart, onto any mesh.  ``save`` of a sharded
+  state gathers each leaf and writes the full array, so the files do not
+  depend on the mesh.
 * ``AsyncCheckpointer`` snapshots the tree to host memory synchronously
   and writes it from a background thread, overlapping the I/O with the next
   steps.
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.distributed.sharding import Sharded, gather, place
 
 _STEP_RE = re.compile(r"step_(\d+)$")
 MANIFEST = "manifest.json"
@@ -43,9 +48,17 @@ def _path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def _host_bytes(x: torch.Tensor) -> tuple[bytes, str]:
+def _to_host(x) -> torch.Tensor:
+    """A leaf as one tensor on the host (a sharded leaf gathered)."""
+    if isinstance(x, Sharded):
+        t = gather(x, "cpu")
+        return t.clone() if any(t is b for b in x.blocks) else t  # a snapshot, never a piece
+    return x.detach().to("cpu", copy=True)
+
+
+def _host_bytes(x) -> tuple[bytes, str]:
     """Little-endian bytes of ``x`` and its dtype name (bf16 through u16)."""
-    x = x.detach().cpu().contiguous()
+    x = (gather(x, "cpu") if isinstance(x, Sharded) else x.detach().cpu()).contiguous()
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16).tobytes(), "bfloat16"
     arr = x.numpy()
@@ -94,10 +107,13 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str | Path, tree_like, step: int | None = None, device=None):
+def restore(ckpt_dir: str | Path, tree_like, step: int | None = None, device=None,
+            shardings=None):
     """Restore into the structure of ``tree_like`` (the latest committed
-    step unless ``step`` is given); each leaf goes to ``device``, else to
-    its template leaf's device.  Returns (tree, manifest)."""
+    step unless ``step`` is given); each leaf is placed by the matching leaf
+    of ``shardings`` when given, else goes to ``device``, else to its
+    template leaf's device (a sharded template leaf: its own sharding).
+    Returns (tree, manifest)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -106,11 +122,17 @@ def restore(ckpt_dir: str | Path, tree_like, step: int | None = None, device=Non
     d = ckpt_dir / f"step_{step:06d}"
     manifest = json.loads((d / MANIFEST).read_text())
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    targets = (tree_lib.leaves(shardings) if shardings is not None
+               else [x.sharding if isinstance(x, Sharded) and device is None else None
+                     for x in tree_lib.leaves(tree_like)])
     out = []
-    for path, leaf in tree_lib.leaves_with_paths(tree_like):
+    for (path, leaf), sh in zip(tree_lib.leaves_with_paths(tree_like), targets):
         ent = by_path[_path_str(path)]
         x = _from_bytes((d / "arrays" / ent["file"]).read_bytes(), ent["dtype"], ent["shape"])
-        out.append(x.to(device if device is not None else leaf.device))
+        if sh is not None:
+            out.append(place(x.to(sh.mesh.home), sh))
+        else:
+            out.append(x.to(device if device is not None else leaf.device))
     return tree_lib.unflatten(tree_like, out), manifest
 
 
@@ -148,7 +170,7 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree, meta: dict | None = None):
         self.wait()
-        host_tree = tree_lib.map_(lambda x: x.detach().to("cpu", copy=True), tree)
+        host_tree = tree_lib.map_(_to_host, tree)
 
         def _write():
             try:

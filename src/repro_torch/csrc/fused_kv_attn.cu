@@ -29,9 +29,12 @@
 // the n-tile (padded with zero rows):
 //   scores^T[T, G] = K[T, D] * (q*st)^T     (m = T, k = D)
 //   out^T[D, G]    = V^T[D, T] * (p*st)^T   (m = D, k = T)
-// m is padded to 16 and masked (T = 8, D = 24).  Each warp takes one m-tile
-// and a fixed share of its k-steps; the partial sums are added in a fixed
-// warp order.  mma.sync and not wgmma (m64nNk8): at G = 8 a block is 256
+// m is padded to 16 and masked (T = 8, D = 24).  A product's work is cut
+// into units of (m-tile, fixed share of its k-steps): with at most 8
+// m-tiles each of the 8 warps takes one unit (8 / m-tiles warps an m-tile);
+// with more (D 160: 10 m-tiles of the P.V product) a unit is a whole m-tile
+// and warp w takes units w and w + 8.  The partial sums are added in a
+// fixed unit order, so a D at or below 128 runs exactly as before.  mma.sync and not wgmma (m64nNk8): at G = 8 a block is 256
 // small products that take well under a microsecond, against microseconds
 // of loads and decode; wgmma is the next step only if the products set the
 // pace.
@@ -86,11 +89,16 @@
 // same codes into the same tile, and everything after the decode is shared,
 // so huffman and packed give bit-identical outputs on the same blocks.
 //
-// Limits: G <= 8 (one n-tile), D and T multiples of 8 in [8, 128] (at most 8
-// m-tiles), code widths of at most 8 bits.  `-Xptxas -v` for sm_90a: the
-// split kernel 61 (raw), 74 (packed) and 64 (huffman) registers, the combine
-// 31; no stack, no spills.  Dynamic shared memory (smem_plan) is 45,472 B a
-// CTA at Yi-6B width for every kind, set by the buffer CTA's two bf16 tiles.
+// Limits: G <= 8 (one n-tile), D a multiple of 8 in [8, 160] (StableLM-2-12B's
+// head_dim 160: 10 m-tiles), T a multiple of 8 in [8, 128], code widths of at
+// most 8 bits.  `-Xptxas -v` for sm_90a with kMaxDim 160: the split kernel 67
+// (raw), 72 (packed) and 64 (huffman) registers, the combine 31; no stack, no
+// spills.  The launch bounds ask for one CTA an SM (what the serving shapes
+// give): without that minimum ptxas held the packed kernel to 64 registers
+// and spilled 8 bytes.  Dynamic shared memory (smem_plan) a CTA, set by the
+// buffer CTA's two bf16 tiles for every kind: 45,472 B at Yi-6B's D 128, T 64;
+// 55,712 B at StableLM-2-12B's D 160, T 64; 100,768 B at D 160, T 128 (over
+// 48 KB the launch raises the kernel's dynamic shared memory limit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +121,8 @@ constexpr float kNegInit = -1e30f;  // finite "-inf" (kernels/ref.py NEG_INIT)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kN = 8;           // the mma n-tile: the query group, padded
-constexpr int kMaxDim = 128;    // D, T <= 8 m-tiles of 16
+constexpr int kMaxDim = 160;    // D <= 10 m-tiles of 16
+constexpr int kMaxT = 128;      // T <= 8 m-tiles of 16
 constexpr int kAcc = kN * kMaxDim / kThreads;  // output elements a thread
 enum TileKind { kRaw = 0, kPacked = 1, kHuffman = 2 };
 
@@ -143,6 +152,17 @@ struct Params {
 
 __host__ __device__ constexpr int r16(int x) { return (x + 15) & ~15; }
 
+// The units of a product with m-extent M: (m-tile, k-share) pairs, and the
+// warps (k-shares) an m-tile.  At most 8 m-tiles: 8 units, kWarps / MT
+// warps an m-tile; more: one unit (and one k-share) an m-tile.
+__host__ __device__ constexpr int m_tiles(int M) { return (M + 15) >> 4; }
+__host__ __device__ constexpr int k_shares(int M) {
+  return m_tiles(M) <= kWarps ? kWarps / m_tiles(M) : 1;
+}
+__host__ __device__ constexpr int red_units(int D, int T) {
+  return m_tiles(D > T ? D : T) > kWarps ? m_tiles(D > T ? D : T) : kWarps;
+}
+
 // Byte offsets into dynamic shared memory, the same on host and device.
 struct Smem {
   int qs, ps, red, misc, region, total;
@@ -155,8 +175,8 @@ __host__ __device__ inline Smem smem_plan(int kind, int D, int T, int Wk, int Wv
   Smem s{};
   s.qs = 0;                                      // f32 [kN, D + 4]: q
   s.ps = s.qs + r16(4 * kN * (D + 4));           // f32 [kN, T + 4]: p
-  s.red = s.ps + r16(4 * kN * (T + 4));          // f32 [kWarps, 16, 8]: partial products
-  s.misc = s.red + 4 * kWarps * 16 * kN;         // f32 m, l, alpha, c0, cv [kN]
+  s.red = s.ps + r16(4 * kN * (T + 4));          // f32 [units, 16, 8]: partial products
+  s.misc = s.red + 4 * red_units(D, T) * 16 * kN;  // f32 m, l, alpha, c0, cv [kN]
   s.region = s.misc + r16(4 * 5 * kN);
   s.raw_tile = r16(2 * T * (D + 8));
   s.code_tile = r16(T * (D + 8));
@@ -308,25 +328,26 @@ __device__ __forceinline__ float elem(const __nv_bfloat16* t, int i) {
   return __bfloat162float(t[i]);
 }
 
-// Warp `warp`'s share of C[M, 8] = A[M, K] * B[K, 8] into red[warp] (row
-// major [16, 8]).  A(m, k) = tile[m * DP + k], or tile[k * DP + m] when
+// Warp `warp`'s units of C[M, 8] = A[M, K] * B[K, 8], unit u into red[u]
+// (row major [16, 8]).  A(m, k) = tile[m * DP + k], or tile[k * DP + m] when
 // kTrans; B(k, g) = bsrc[g * bstride + k] * st[k] (st null: 1), split into
-// TF32 hi and lo.  Warp w takes m-tile w / kw and k-steps w % kw + j * kw,
-// kw = kWarps / ceil(M / 16).
+// TF32 hi and lo.  Unit u takes m-tile u / kw and k-steps u % kw + j * kw,
+// kw = k_shares(M); warp w takes units w, w + kWarps, ...
 template <bool kTrans, typename E>
 __device__ __forceinline__ void product(const E* __restrict__ tile, int DP,
                                         const float* __restrict__ bsrc, int bstride,
                                         const __nv_bfloat16* __restrict__ st, int M, int K,
                                         float* __restrict__ red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, grp = lane >> 2, tq = lane & 3;
-  const int MT = (M + 15) >> 4, kw = kWarps / MT, KS = K >> 3;
-  float ch[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};  // two mma chains
-  if (warp < MT * kw) {
-    const int r0 = (warp / kw) * 16 + grp, r1 = r0 + 8;
+  const int kw = k_shares(M), units = m_tiles(M) * kw, KS = K >> 3;
+  const float* brow = bsrc + grp * bstride;
+#pragma unroll 1
+  for (int u = warp; u < units; u += kWarps) {
+    float ch[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};  // two mma chains
+    const int r0 = (u / kw) * 16 + grp, r1 = r0 + 8;
     const bool ok0 = r0 < M, ok1 = r1 < M;
-    const float* brow = bsrc + grp * bstride;
 #pragma unroll 4
-    for (int ks = warp % kw; ks < KS; ks += kw) {
+    for (int ks = u % kw; ks < KS; ks += kw) {
       const int k0 = ks * 8 + tq, k1 = k0 + 4;
       uint32_t a[4];
       if (kTrans) {
@@ -350,16 +371,16 @@ __device__ __forceinline__ void product(const E* __restrict__ tile, int DP,
                tf32(__fsub_rn(x1, __uint_as_float(h1))));
       mma_tf32(ch, a, h0, h1);
     }
+    float2* r = reinterpret_cast<float2*>(red + u * 16 * kN);
+    r[(grp * kN + 2 * tq) / 2] = make_float2(__fadd_rn(ch[0], cl[0]), __fadd_rn(ch[1], cl[1]));
+    r[((grp + 8) * kN + 2 * tq) / 2] = make_float2(__fadd_rn(ch[2], cl[2]),
+                                                   __fadd_rn(ch[3], cl[3]));
   }
-  float2* r = reinterpret_cast<float2*>(red + warp * 16 * kN);
-  r[(grp * kN + 2 * tq) / 2] = make_float2(__fadd_rn(ch[0], cl[0]), __fadd_rn(ch[1], cl[1]));
-  r[((grp + 8) * kN + 2 * tq) / 2] = make_float2(__fadd_rn(ch[2], cl[2]),
-                                                 __fadd_rn(ch[3], cl[3]));
 }
 
-// Element (m, g) of a product: its warps' partials added in warp order.
+// Element (m, g) of a product: its units' partials added in unit order.
 __device__ __forceinline__ float reduced(const float* red, int M, int m, int g) {
-  const int kw = kWarps / ((M + 15) >> 4);
+  const int kw = k_shares(M);
   const float* r = red + ((m >> 4) * kw) * 16 * kN + (m & 15) * kN + g;
   float v = r[0];
   for (int j = 1; j < kw; ++j) v = __fadd_rn(v, r[j * 16 * kN]);
@@ -392,10 +413,10 @@ __device__ void attend_tile(const Params& p, const Shared& sh, const E* kt, cons
   __syncthreads();
   if (warp < G) {  // warp g: row g's scores, online softmax, p and cv
     const int g = warp;
-    float sv[kMaxDim / 32];
+    float sv[kMaxT / 32];
     float mx = kNegInit;
 #pragma unroll
-    for (int j = 0; j < kMaxDim / 32; ++j) {
+    for (int j = 0; j < kMaxT / 32; ++j) {
       const int t = lane + 32 * j;
       sv[j] = kNegInit;
       if (t < T && t < valid) {
@@ -408,7 +429,7 @@ __device__ void attend_tile(const Params& p, const Shared& sh, const E* kt, cons
     const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f, cv = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxDim / 32; ++j) {
+    for (int j = 0; j < kMaxT / 32; ++j) {
       const int t = lane + 32 * j;
       if (t < T) {
         const float pr = t < valid ? expf(__fsub_rn(sv[j], m_new)) : 0.f;
@@ -447,7 +468,7 @@ __device__ void attend_tile(const Params& p, const Shared& sh, const E* kt, cons
 // CTA (h, s, b): ring slots [s*kSplit, s*kSplit + kSplit) of row b, head h,
 // or (s = nsplit - 1) the raw tail buffer; writes the range's partial.
 template <int KIND>
-__global__ void __launch_bounds__(kThreads) fused_kv_attn_split_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1) fused_kv_attn_split_kernel(Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
   const int G = p.G, D = p.D, T = p.T, tid = threadIdx.x;
@@ -643,7 +664,7 @@ int fused_kv_attn_launch(const void* q, const void* k_store, const void* k_min,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   const bool dims_ok = G >= 1 && G <= kN && D % 8 == 0 && D >= 8 && D <= kMaxDim &&
-                       T % 8 == 0 && T >= 8 && T <= kMaxDim && kind >= kRaw && kind <= kHuffman;
+                       T % 8 == 0 && T >= 8 && T <= kMaxT && kind >= kRaw && kind <= kHuffman;
   const bool bits_ok = kind != kPacked || (bits_k >= 1 && bits_k <= 8 && bits_v >= 1 && bits_v <= 8);
   const int nsplit = (NB + kSplit - 1) / kSplit + 1;
   if (!dims_ok || !bits_ok || B < 1 || Hkv < 1 || NB < 1 || 3 * 4 * nsplit > 48 * 1024)

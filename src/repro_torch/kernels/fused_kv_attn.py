@@ -34,7 +34,9 @@ from repro_torch.kernels.ref import fused_cache_attention_ref as plain
 
 NAME = "fused_kv_attn"
 SPLIT_BLOCKS = 1  # ring slots a CTA; the library reports its own (fused_kv_attn_split_blocks)
-MAX_G, MAX_DIM = 8, 128  # one mma n-tile of query rows; D, T at most 8 m-tiles
+MAX_G = 8      # one mma n-tile of query rows
+MAX_DIM = 160  # head_dim: at most 10 m-tiles of 16 (StableLM-2-12B's 160)
+MAX_T = 128    # block_size: at most 8 m-tiles of 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 16 + [_I] * 16 + [ctypes.c_float, _I, _P]
 _KINDS = {"raw": 0, "packed": 1, "huffman": 2}
@@ -62,12 +64,7 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
     Bs = 1 if paged else B  # the arena's batch extent is 1
     T = block_size
     G = Hq // Hkv
-    runtime.require(Hq == Hkv * G and G <= MAX_G,
-                    f"{NAME}: {Hq} query heads over {Hkv} KV heads: the kernel takes "
-                    f"groups of at most {MAX_G} query heads a KV head")
-    runtime.require(all(x % 8 == 0 and 8 <= x <= MAX_DIM for x in (D, T)),
-                    f"{NAME}: head_dim {D} and block_size {T} must be multiples of 8 "
-                    f"in [8, {MAX_DIM}]")
+    check_shape(Hq, Hkv, D, T)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     bf, i32 = torch.bfloat16, torch.int32
@@ -109,6 +106,18 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
         tile.probes_v, float(scale), *runtime.stream_args(dev),
         count=NAME + ("_huffman" if huff else "") + ("_paged" if paged else ""))
     return out
+
+
+def check_shape(Hq: int, Hkv: int, D: int, T: int) -> None:
+    """Raise unless the kernel takes these heads, head_dim and block size."""
+    G = Hq // Hkv
+    runtime.require(Hq == Hkv * G and G <= MAX_G,
+                    f"{NAME}: {Hq} query heads over {Hkv} KV heads: the kernel takes "
+                    f"groups of at most {MAX_G} query heads a KV head")
+    runtime.require(D % 8 == 0 and 8 <= D <= MAX_DIM,
+                    f"{NAME}: head_dim {D} must be a multiple of 8 in [8, {MAX_DIM}]")
+    runtime.require(T % 8 == 0 and 8 <= T <= MAX_T,
+                    f"{NAME}: block_size {T} must be a multiple of 8 in [8, {MAX_T}]")
 
 
 def split_blocks() -> int:

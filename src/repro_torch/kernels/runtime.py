@@ -47,14 +47,15 @@ build_log: dict[str, str] = {}  # ptxas register / shared-memory report
 
 
 def resolve_device(device) -> torch.device:
-    """``cuda`` or ``cpu``; raises if CUDA is asked for and absent."""
+    """``cuda`` or ``cpu`` (or ``meta``: shapes alone); raises if CUDA is
+    asked for and absent."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' explicitly to run "
                 "the port's plain PyTorch path")
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"device must be cuda or cpu, got {device!r}")
     return dev
 

@@ -30,6 +30,15 @@ def init_attention(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
     return params
 
 
+def attention_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``init_attention``'s leaves."""
+    axes = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        axes["q_norm"] = axes["k_norm"] = ("head_dim",)
+    return axes
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, S, d] @ w [d, H, Dh] -> [B, S, H, Dh]."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])

@@ -57,6 +57,11 @@ def init_mlp(gen, d_model: int, d_ff: int, *, device, dtype=torch.float32):
             "w_down": dense_init(gen, (d_ff, d_model), device=device, dtype=dtype)}
 
 
+def mlp_axes() -> dict:
+    """The logical axes of ``init_mlp``'s leaves."""
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU."""
     return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
@@ -68,6 +73,14 @@ def init_embedding(gen, vocab: int, d_model: int, tie: bool, *, device,
     if not tie:
         params["unembed"] = dense_init(gen, (d_model, vocab), device=device, dtype=dtype)
     return params
+
+
+def embedding_axes(tie: bool) -> dict:
+    """The logical axes of ``init_embedding``'s leaves."""
+    axes = {"embed": ("vocab", "embed")}
+    if not tie:
+        axes["unembed"] = ("embed", "vocab")
+    return axes
 
 
 def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:

@@ -63,11 +63,14 @@ def _dense_block(gen, cfg: ModelConfig, kw):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.float32):
-    """Random weights from ``seed`` with the reference's init scales."""
+    """Random weights from ``seed`` with the reference's init scales
+    (``device="meta"``: shapes and dtypes alone, no storage)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     kw = dict(device=dev, dtype=dtype)
     params = {"emb": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                            cfg.tie_embeddings, **kw),
@@ -89,6 +92,34 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=torch.floa
         # ONE shared attention block (Zamba2's weight-shared attention).
         params["attn_shared"] = _dense_block(gen, cfg, kw)
     return params
+
+
+def _dense_block_axes(cfg: ModelConfig) -> dict:
+    return {"ln_attn": ("embed",), "attn": attention.attention_axes(cfg),
+            "ln_mlp": ("embed",), "mlp": layers.mlp_axes()}
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical-axes tree of ``init_params``: the same structure, a
+    tuple of axis names for each leaf.  A leaf's axes are the reference's
+    (``repro.models.model.init_params``) without its stacking axes
+    (``layers``, ``periods``): the port holds one dict a layer."""
+    _check_family(cfg)
+    axes = {"emb": layers.embedding_axes(cfg.tie_embeddings), "ln_f": ("embed",)}
+    if cfg.family == "dense":
+        axes["blocks"] = [_dense_block_axes(cfg) for _ in range(cfg.n_layers)]
+    elif cfg.family == "moe":
+        axes["blocks"] = [moe.moe_block_axes(cfg) for _ in range(cfg.n_layers)]
+    elif cfg.family == "ssm":
+        axes["blocks"] = [ssm.mamba_block_axes() for _ in range(cfg.n_layers)]
+    else:
+        n_periods, ppm, tail = _hybrid_counts(cfg)
+        axes["mamba"] = [[ssm.mamba_block_axes() for _ in range(ppm)]
+                         for _ in range(n_periods)]
+        if tail:
+            axes["mamba_tail"] = [ssm.mamba_block_axes() for _ in range(tail)]
+        axes["attn_shared"] = _dense_block_axes(cfg)
+    return axes
 
 
 def _embed_input(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -149,11 +180,13 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = False,
-            q_chunk: int = 512, kv_chunk: int = 512):
+            q_chunk: int = 512, kv_chunk: int = 512, count=None):
     """Next-token cross entropy (tokens mode) or frame cross entropy (encoder
     mode) against ``batch["labels"]`` int [B, S], masked by ``batch["mask"]``
     when given, in float32, plus the MoE aux loss.  Returns ``(loss, {"ce",
-    "aux_loss"})``."""
+    "aux_loss"})``.  ``count`` (a float32 scalar) replaces the mask's own
+    count as the mean's denominator: a batch shard's term of the global
+    batch's masked mean (``train.step``)."""
     logits, aux = forward(params, cfg, batch, remat=remat, q_chunk=q_chunk,
                           kv_chunk=kv_chunk)
     lf = logits.to(torch.float32)
@@ -161,7 +194,8 @@ def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = False,
     ll = lf.gather(-1, labels[..., None])[..., 0] - torch.logsumexp(lf, dim=-1)
     mask = batch.get("mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(torch.float32)
-    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(mask.sum(), min=1.0) if count is None else count
+    loss = -(ll * mask).sum() / denom
     return loss + aux["aux_loss"], {"ce": loss, **aux}
 
 

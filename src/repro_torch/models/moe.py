@@ -44,6 +44,13 @@ def init_moe(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
             "w_down": layers.dense_init(gen, (E, Fe, d), **kw)}
 
 
+def moe_axes() -> dict:
+    """The logical axes of ``init_moe``'s leaves."""
+    return {"router": ("embed", "experts_r"), "w_gate": ("experts", "embed", "expert_mlp"),
+            "w_up": ("experts", "embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed")}
+
+
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     """Slots per expert for ``n_tokens`` tokens: the reference's expression,
     on host ints."""
@@ -123,3 +130,9 @@ def init_moe_block(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
             "attn": attention.init_attention(gen, cfg, **kw),
             "ln_moe": torch.ones((cfg.d_model,), **kw),
             "moe": init_moe(gen, cfg, **kw)}
+
+
+def moe_block_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``init_moe_block``'s leaves."""
+    return {"ln_attn": ("embed",), "attn": attention.attention_axes(cfg),
+            "ln_moe": ("embed",), "moe": moe_axes()}

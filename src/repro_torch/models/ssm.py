@@ -49,6 +49,15 @@ def init_mamba_block(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
     }
 
 
+def mamba_block_axes() -> dict:
+    """The logical axes of ``init_mamba_block``'s leaves."""
+    heads = ("ssm_heads",)
+    return {"ln": ("embed",), "in_proj": ("embed", "ssm_proj"),
+            "conv_w": ("conv_k", "ssm_conv_ch"), "conv_b": ("ssm_conv_ch",),
+            "A_log": heads, "dt_bias": heads, "D": heads, "norm": ("ssm_inner",),
+            "out_proj": ("ssm_inner", "embed")}
+
+
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     di, P, H, N, G, _ = _dims(cfg)
     return torch.split(proj, [di, di + 2 * G * N, H], dim=-1)  # z, xBC, dt

@@ -8,9 +8,14 @@
   ``straggler_factor`` times it are recorded;
 * deterministic data resume: the pipeline is a pure function of the step.
 
-The reference's mesh becomes one device: the trainer runs on the card
-unless it is given ``device="cpu"``.  A caller may set ``trainer.state``
-before ``run``, as in the reference.
+Without a mesh the trainer runs on one device: the card unless it is
+given ``device="cpu"``.  Given ``mesh=`` (``launch.mesh``), it trains with
+``train.step.build_train_artifacts``: the parameters, moments and ``err``
+placed as pieces by the shardings, each batch placed by
+``batch_sharding``, and ``maybe_resume`` restores onto the current mesh,
+whatever mesh wrote the checkpoint.  A caller may set ``trainer.state``
+before ``run``, as in the reference (plain tensors are placed on the mesh
+when the run starts).
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ import dataclasses
 import signal
 import time
 
+import torch
+
 from repro_torch.checkpoint import store
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -64,10 +72,17 @@ class StragglerMonitor:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, scfg: step_lib.TrainStepConfig, tcfg: TrainerConfig,
-                 data, *, device="cuda", seed: int = 0):
-        self.cfg, self.scfg, self.tcfg, self.data = cfg, scfg, tcfg, data
-        self.device = resolve_device(device)
-        self.step_fn = step_lib.build_train_step(cfg, scfg, self.device)
+                 data, *, device="cuda", mesh=None, seed: int = 0):
+        self.cfg, self.scfg, self.tcfg, self.data, self.mesh = cfg, scfg, tcfg, data, mesh
+        self.shardings = self.bshard = None
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.step_fn = step_lib.build_train_step(cfg, scfg, self.device)
+        else:
+            self.device = resolve_device(mesh.home)
+            self.step_fn, _, in_sh, _ = step_lib.build_train_artifacts(
+                cfg, mesh, scfg, data.batch_at(0))
+            self.shardings, self.bshard = in_sh
         self.state = None
         self.start_step = 0
         self._preempted = False
@@ -78,11 +93,16 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self):
-        """Fresh parameters from ``seed`` in ``cfg.dtype``, zero moments; the
-        error-feedback state stays None (one device: see ``train.step``)."""
+        """Fresh parameters from ``seed`` in ``cfg.dtype``, zero moments; under
+        a mesh all placed by the shardings, with a zero ``err`` where the
+        mesh has a "pod" axis and the step compresses across it (else
+        None)."""
         params = M.init_params(self.cfg, seed=self._seed, device=self.device,
                                dtype=step_lib.dtype_of(self.cfg.dtype))
-        self.state = (params, adamw.init(params), None)
+        if self.mesh is None:
+            self.state = (params, adamw.init(params), None)
+        else:
+            self.state = step_lib.place_state((params, None, None), self.shardings)
 
     def maybe_resume(self) -> bool:
         last = store.latest_step(self.tcfg.ckpt_dir)
@@ -90,7 +110,8 @@ class Trainer:
             return False
         if self.state is None:
             self.init_state()
-        self.state, manifest = store.restore(self.tcfg.ckpt_dir, self.state, step=last)
+        self.state, manifest = store.restore(self.tcfg.ckpt_dir, self.state, step=last,
+                                             shardings=self.shardings)
         self.start_step = int(manifest["step"])
         return True
 
@@ -109,10 +130,15 @@ class Trainer:
     def run(self) -> dict:
         if self.state is None and not self.maybe_resume():
             self.init_state()
+        if self.mesh is not None:
+            self.state = step_lib.place_state(self.state, self.shardings)
         t_start = time.monotonic()
         step = self.start_step
         while step < self.tcfg.total_steps and not self._preempted:
             batch = self.data.batch_at(step)
+            if self.mesh is not None:
+                batch = {k: shd.place(torch.as_tensor(v, device=self.device), self.bshard[k])
+                         for k, v in batch.items()}
             self.monitor.start()
             self.state, metrics = self.step_fn(self.state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}

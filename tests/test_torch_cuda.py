@@ -116,6 +116,33 @@ def test_store_kernel_bit_exact_at_mixtral_shape(layout, cuda):
 
 
 ZAMBA_HKV, ZAMBA_G, ZAMBA_D = 32, 1, 112  # Zamba2-7B's shared attention block
+STABLELM_HKV, STABLELM_G, STABLELM_D = 8, 4, 160  # StableLM-2-12B: 10 m-tiles of head_dim
+
+
+def _fetch_at_shape(layout, paged, cuda, hkv, g, d):
+    """The Fetch at one model's (Hkv, G, D), dense or paged: within 1e-4 of
+    plain, two launches bit-identical."""
+    spec, c = _filled_cache(layout, [16, 9, 1, 0], [0, 63, 17, 5], cuda, heads=hkv, dim=d)
+    if paged:
+        c = _paged(c, spec, cuda)
+    q = torch.randn((4, hkv * g, d), device=cuda)
+    args = _args(c, torch.clamp(c.n_flushed, max=spec.n_blocks))
+    args += (c.page_tab,) if paged else ()
+    kw = dict(tile=spec.impl.tile_decode(spec, d), block_size=64)
+    runtime.reset_launches()
+    got = fused_kv_attn.fused_cache_attention(q, *args, **kw)
+    assert sum(runtime.launches.values()) == 1
+    want = fused_kv_attn.plain(q, *args, **kw)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, fused_kv_attn.fused_cache_attention(q, *args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("layout", ["packed", "kivi", "raw", "huffman"])
+def test_fetch_kernel_matches_plain_at_stablelm_shape(layout, paged, cuda):
+    """Head_dim 160 (a warp takes a second m-tile of the P.V product)."""
+    _fetch_at_shape(layout, paged, cuda, STABLELM_HKV, STABLELM_G, STABLELM_D)
 
 
 @pytest.mark.cuda

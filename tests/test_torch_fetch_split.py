@@ -33,7 +33,8 @@ from repro_torch.kernels.ref import NEG_INIT  # noqa: E402
 ATOL = 1e-4  # chip_smoke.FETCH_ATOL: the kernel vs its plain version
 LAYOUTS = ["raw", "packed", "kivi", "huffman"]
 GRID = [(1, 1, 1, 32, 16, 8), (2, 2, 3, 96, 32, 16), (1, 4, 2, 64, 64, 16),
-        (2, 1, 8, 48, 24, 8)]
+        (2, 1, 8, 48, 24, 8),
+        (1, 2, 4, 48, 160, 16)]  # StableLM-2-12B's head_dim: 10 m-tiles of the P.V product
 _jprefill = jax.jit(JC.prefill, static_argnums=0)
 
 
@@ -253,3 +254,19 @@ def test_tf32_split_error_at_yi_width(rng):
         err[name] = float((emu - plain).abs().max())
     print(f"max |emulation - plain| at Yi-6B width: {err}")
     assert err["TF32 hi + lo"] <= ATOL
+
+
+def test_wrapper_shape_limits():
+    """The kernel's limits as the wrapper states them: G <= 8, head_dim a
+    multiple of 8 up to StableLM-2-12B's 160, block_size up to 128; a shape
+    outside them raises before any launch (no fallback)."""
+    assert (fused_kv_attn.MAX_G, fused_kv_attn.MAX_DIM, fused_kv_attn.MAX_T) == (8, 160, 128)
+    for hq, hkv, d, t in ((32, 8, 160, 64), (32, 8, 160, 128), (8, 8, 8, 8), (64, 8, 112, 64)):
+        fused_kv_attn.check_shape(hq, hkv, d, t)
+    for (hq, hkv, d, t), text in (
+            ((32, 8, 168, 64), "head_dim 168 must be a multiple of 8 in [8, 160]"),
+            ((32, 8, 164, 64), "head_dim 164 must be a multiple of 8 in [8, 160]"),
+            ((32, 8, 160, 136), "block_size 136 must be a multiple of 8 in [8, 128]"),
+            ((72, 8, 128, 64), "groups of at most 8 query heads")):
+        with pytest.raises(ValueError, match=text.replace("[", r"\[").replace("]", r"\]")):
+            fused_kv_attn.check_shape(hq, hkv, d, t)

@@ -101,3 +101,29 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              text=True, timeout=120, env=_env() if cwd == ROOT else None)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# The sharded-training slice's modules and names: each lives in a file the
+# two checks above parse, and importing it loads no JAX (the subprocess
+# above imports every module of the port).
+SHARDED_TRAINING = [
+    ("repro_torch.distributed.sharding", ("Rules", "train_rules", "serve_rules", "data_axes",
+                                          "spec_for_axes", "make_param_shardings",
+                                          "batch_sharding", "replicated", "cache_shardings",
+                                          "P", "NamedSharding", "abstract_mesh", "Sharded",
+                                          "place", "gather", "accumulate")),
+    ("repro_torch.launch.mesh", ("make_production_mesh", "make_host_mesh", "make_train_mesh")),
+    ("repro_torch.train.step", ("shapes_and_axes", "build_train_artifacts",
+                                "_cross_pod_compressed_allreduce", "build_serve_artifacts")),
+    ("repro_torch.models.model", ("param_axes",)),
+]
+
+
+@pytest.mark.parametrize("module,names", SHARDED_TRAINING, ids=lambda x: x if isinstance(x, str)
+                         else None)
+def test_sharded_training_names_are_covered(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    assert Path(mod.__file__).resolve() in {p.resolve() for p in SOURCES}
+    assert all(callable(getattr(mod, n)) for n in names)

@@ -408,9 +408,9 @@ def test_train_cli_and_examples_on_the_cpu(tmp_path, capsys, monkeypatch):
                        "--ckpt-dir", str(tmp_path / "c"), "--resume", "--data", "synthetic",
                        "--device", "cpu"])
     assert out["final_step"] == 4 and "resume: ok, from step 3" in capsys.readouterr().out
-    with pytest.raises(SystemExit) as e:
-        launch.main(["--multi-pod", "--device", "cpu"])
-    assert e.value.code == 2 and "later slice" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:  # the 2x16x16 mesh wants 512 devices
+        launch.main(["--production", "--multi-pod", "--device", "cpu"])
+    assert e.value.code == 2 and "needs 512 devices" in capsys.readouterr().err
 
     path = Path(__file__).resolve().parents[1] / "examples" / "train_lm_torch.py"
     spec = importlib.util.spec_from_file_location("train_lm_torch", path)
