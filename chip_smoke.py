@@ -7,8 +7,8 @@
 
 Phases, in the order they run (11 after 4, 12 after 9, 13 to 15 after
 12, 18 after 15, 20 after 18, 21 after 20, 16 and 17 after 21, 19 after
-17, 22 after 19, times last); any failure exits non-zero before the result
-lines:
+17, 22 after 19, 23 after 22, times last); any failure exits non-zero
+before the result lines:
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the three hand-written kernel libraries from
@@ -43,7 +43,7 @@ lines:
    kernels on ``walk_edge_cases`` (S of 1, 40, 64 and 100; edge books and
    streams) against their plain versions, by the same rule.
 5. Serve, dense: a Server on full-width Yi-6B (random weights from a seed,
-   float32, YI_LAYERS = 8 of its 32 layers; built once and shared by the
+   float32, YI_LAYERS = 4 of its 32 layers; built once and shared by the
    serving phases 5 to 15, 18 and 20), 4 requests of several hundred to
    1000 prompt tokens, 32 new tokens each, every request crossing a block
    boundary in decode.  Launch counts are
@@ -125,7 +125,7 @@ lines:
    within FETCH_ATOL of its plain version for packed, kivi, raw and
    huffman, rows alone == in the batch, two launches bit-identical,
    huffman bit-identical to packed, the Store bit-exact; (a) Qwen3-30B-A3B
-   (128 experts top-8, qk-norm), 16 of its 48 layers, random float32
+   (128 experts top-8, qk-norm), QWEN_MOE_LAYERS of its 48 layers, random float32
    weights: phase 5's four prompts, longest first, 40, 32, 28 and 24 new
    tokens, chunked admission at 512 tokens, served (i) dense, (ii) paged
    in a pool that holds all four rows, (iii) with huffman caches, dense,
@@ -205,8 +205,9 @@ lines:
    invariant auditor runs every step and stays clean.  Phase 20's
    launches join the JSON line's counts.
 19. Training, once phase 17's models are freed (every figure beside the
-   card's name and power limit): (a) Qwen3-1.7B at full width and depth
-   (28 layers, tied embeddings, random float32 weights from seed 0) on
+   card's name and power limit): (a) Qwen3-1.7B at full width,
+   TRAIN_QWEN_LAYERS of its 28 layers (tied embeddings, random float32
+   weights from seed 0) on
    TextCorpus batches of 4 x 512 tokens: 4 AdamW steps with remat (wall ms,
    TFLOP/s as 6 x params x tokens over the wall, the last step profiled for
    device busy ms, peak GiB); then the next step's loss and gradient norm
@@ -248,6 +249,20 @@ lines:
    LM saved on (2, 2) and restored on 1x1: the state bit-equal and the next
    loss equal to the unsharded step's.  Training launches no kernel of the
    repository.
+23. The dry run (``repro_torch.launch.dryrun``) against the card, after 22:
+   (a) one Qwen3-1.7B training step (DRY_TRAIN_LAYERS of 28 layers, 4 x
+   512, remat, float32) run on the card under the op count and counted on
+   meta: FLOPs and op bytes equal; the counted temp + argument bytes beside
+   the card's peak allocation, the FLOPs beside ``model_flops``' 6·N·T;
+   (b) the counted bytes a shard of phase 22's (2, 2) and (2, 1, 2) states
+   equal phase 22's measured bytes; (c) a Yi-6B decode step (YI_LAYERS, 4
+   rows of DRY_DECODE_SEQ tokens, every store slot valid), packed and
+   huffman: the charged Fetch and Store bytes a call equal
+   ``fetch_bound_ms`` (whole huffman slots) / ``store_bound`` for those
+   shapes, the charged calls equal the step's launches, and the counted
+   roofline time is at most the step's device busy time; (d) DRY_CELLS,
+   three production cells on the (16, 16) meta mesh, each with its host
+   seconds (the training cell through its analysis counts alone).
 10. Times: each kernel and its plain version at the main path's shapes (CUDA
    events, L2 flushed before each launch, after warm-up), launches per
    decode step, and the bound: the larger of bytes over 3.35 TB/s and
@@ -298,9 +313,9 @@ B, HKV, G, D, T, NB = 4, 4, 8, 128, 64, 64
 PROMPT_LENS = (300, 500, 750, 1000)  # each % 64 >= 33: decode crosses a block
 NEW_TOKENS = 32
 # Yi-6B's depth in the serving phases: the layers are alike, and the serving
-# phases are bound by the host's time a layer, so 8 of 32 keep the script
-# inside its time limit at full width.
-YI_LAYERS = 8
+# phases are bound by the host's time a layer, so 4 of 32 keep the script
+# within half its time limit at full width (8 took 727 s on a slow host).
+YI_LAYERS = 4
 # The paged serving phase: 8 slots; each prompt % 64 >= 17, so 48 new
 # tokens cross a block boundary in decode.
 PAGED_LENS = (280, 350, 420, 490, 560, 630, 700, 750)
@@ -323,7 +338,7 @@ CHAOS_SEED = 20260808    # phase 14's fault plan
 # window's ring of 64 blocks in prefill and in decode; B retires while A
 # decodes.
 MOE_REQS = ((1000, 40), (750, 32), (500, 28), (300, 24))
-QWEN_MOE_LAYERS = 16   # of 48: 2.49 GB of float32 weights a layer
+QWEN_MOE_LAYERS = 8    # of 48: 2.49 GB of float32 weights a layer (the script's time)
 MIXTRAL_LAYERS = 2     # of 56: 10.0 GB a layer
 MIXTRAL_SEQ = 8192
 MIXTRAL_REQS = ((4600, 64), (600, 16))  # (prompt tokens, new tokens): A, B
@@ -439,13 +454,15 @@ def huffman_slot_bytes(spec, c, nb_valid) -> int:
 
 
 def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
-                   cache=None, hkv: int = HKV, g_: int = G, d_: int = D) -> dict:
+                   cache=None, hkv: int = HKV, g_: int = G, d_: int = D,
+                   whole_slots: bool = False) -> dict:
     """Least time for the Fetch work of these inputs: live blocks, valid
     buffer tokens, q in, output out, and the page table when paged (bytes);
     the two products per block and token (ops).  The scales fold into the
     products (q.(mn + st*c) = q.mn + (q*st).c, and the same for V), so
     dequantizing each value is not counted.  Huffman slots count their
-    header and the payload words this data fills (from the dense ``cache``)
+    header and the payload words this data fills (from the dense ``cache``;
+    with ``whole_slots``, every word of each live slot, the dry run's charge)
     and the two LUTs once; the entropy decode's integer work is not counted.
 
     The kernel runs the products on the tensor cores as two TF32 products
@@ -462,7 +479,9 @@ def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
     else:
         if spec.layout == "huffman":
             tile = spec.impl.tile_decode(spec, D)
-            blocks = (huffman_slot_bytes(spec, cache, nb_valid) + live * 2 * 2 * (D + T)
+            slots = (live * 4 * (tile.k_tile[0] + tile.v_tile[0]) if whole_slots
+                     else huffman_slot_bytes(spec, cache, nb_valid))
+            blocks = (slots + live * 2 * 2 * (D + T)
                       + 4 * (tile.book_k.decode_lut().size + tile.book_v.decode_lut().size))
         else:
             blocks = live * (4 * (spec.words_k(D) + spec.words_v(D)) + 2 * 2 * (D + T))
@@ -474,7 +493,20 @@ def fetch_bound_ms(spec, nb_valid, buf_len, paged: bool = False,
     b_ms, by = bound(nbytes, 2 * flops, TF32_FLOPS)
     f_ms, f_by = bound(nbytes, flops)
     return dict(bound_ms=b_ms, bound_by=by, bytes_ms=1e3 * nbytes / HBM_BYTES_S, f32_ms=f_ms,
-                f32_by=f_by)
+                f32_by=f_by, nbytes=nbytes, flops=flops)
+
+
+def store_bound(spec, nrows: int, nslots: int, hkv: int = HKV, d_: int = D,
+                elem: int = 2) -> tuple[int, int]:
+    """(bytes, operations) of the Store writing ``nrows`` blocks (K and V of
+    ``hkv`` heads each) from ``elem``-byte values with ``nslots`` int32
+    slots: the values in, the slots, the words and bf16 scales out; 4
+    operations a value."""
+    T = spec.block_size
+    n_val = 2 * nrows * hkv * T * d_
+    nbytes = (n_val * elem + nslots * 4
+              + nrows * hkv * (4 * (spec.words_k(d_) + spec.words_v(d_)) + 2 * 2 * (d_ + T)))
+    return nbytes, 4 * n_val
 
 
 def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
@@ -1919,7 +1951,7 @@ def _add_launches(report: dict, key: str, launches: dict) -> None:
 
 def phase_moe(report: dict) -> None:
     """Phase 16: the MoE family on the card.  (c) the kernels at Mixtral's
-    shapes; (a) Qwen3-30B-A3B at full width, 16 of 48 layers, dense, paged,
+    shapes; (a) Qwen3-30B-A3B at full width, QWEN_MOE_LAYERS of 48 layers, dense, paged,
     huffman and dense again, tokens equal; (b) Mixtral-8x22B at full width,
     2 of 56 layers, past its sliding window, dense and paged, tokens equal,
     the Fetch on the live wrapped state against its plain version.
@@ -2368,11 +2400,14 @@ def phase_hybrid(report: dict) -> None:
 POLICY_SMALL_BLOCK = tuple(range(YI_LAYERS // 2, YI_LAYERS))
 POLICY_SCAN_LAYERS = tuple(range(3 * YI_LAYERS // 4, YI_LAYERS))
 POLICY_SPAN = 256
-# Phase 19: training.  Qwen3-1.7B at full width and depth on 4 x 512 tokens;
+# Phase 19: training.  Qwen3-1.7B at full width, TRAIN_QWEN_LAYERS of its 28
+# layers (the script's time: the checkpoint of 28 took 54 s to save and
+# restore on a slow host), on 4 x 512 tokens;
 # Mamba2-1.3B on 2 x 512; Qwen3-30B-A3B at full width, 2 of 48 layers, on
 # 2 x 512; then the tiny byte LM, trained and served.
 TRAIN_SEQ = 512
 TRAIN_STEPS = 4
+TRAIN_QWEN_LAYERS = 14
 LOSS_RTOL = 1e-5       # remat on / off, microbatches 1 / 2: float32 sums in other orders
 GNORM_RTOL = 1e-4      # the same for the gradient norm (atomics in the embedding's backward)
 TINY_PROMPT, TINY_NEW, TINY_SLOTS, TINY_MAX_SEQ = 64, 24, 4, 256
@@ -2708,8 +2743,8 @@ def phase_train(report: dict) -> None:
     from repro_torch.optim import adamw
     from repro_torch.train import step as S
 
-    print("  (a) Qwen3-1.7B at full width and depth")
-    cfg, params = train_model("qwen3_1_7b")
+    print(f"  (a) Qwen3-1.7B at full width, {TRAIN_QWEN_LAYERS} of its 28 layers")
+    cfg, params = train_model("qwen3_1_7b", n_layers=TRAIN_QWEN_LAYERS)
     data = TextCorpus(seq_len=TRAIN_SEQ, global_batch=4)
     opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=20)
     scfg = S.TrainStepConfig(remat=True, q_chunk=TRAIN_SEQ, kv_chunk=TRAIN_SEQ, opt=opt)
@@ -3021,12 +3056,14 @@ def _unsharded_metrics(cfg, scfg, state, batch, compress: bool = False) -> tuple
     return float(loss), float(adamw.global_norm(grads))
 
 
-def _shard_bytes(mesh, state) -> None:
+def _shard_bytes(mesh, state) -> dict:
     """Each position's bytes of parameters, moments and err against what
-    the specs give; raises where they differ."""
+    the specs give; raises where they differ.  Returns the first
+    position's."""
     from repro_torch.distributed import sharding as shd
 
     parts = {"params": state[0], "moments": state[1], "err": state[2]}
+    first = None
     for pos in mesh.positions():
         got = {k: shd.shard_nbytes(v, pos) for k, v in parts.items() if v is not None}
         want = {k: shd.spec_nbytes(v) for k, v in parts.items() if v is not None}
@@ -3035,6 +3072,8 @@ def _shard_bytes(mesh, state) -> None:
         print(f"  shard {pos} on {mesh.devices[pos]}: "
               + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in got.items())
               + " (= the specs' count)")
+        first = got if first is None else first
+    return first
 
 
 def phase_shard_train(report: dict) -> None:
@@ -3086,7 +3125,7 @@ def phase_shard_train(report: dict) -> None:
     state = S.place_state((params, None, None), in_sh[0])
     del params
     torch.cuda.empty_cache()
-    _shard_bytes(mesh, state)
+    report["shard_bytes"] = {"2,2": _shard_bytes(mesh, state)}
     print(f"  allocated on the card after placing: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     walls, flops = [], 6 * cfg.param_count() * 4 * TRAIN_SEQ
@@ -3130,7 +3169,7 @@ def phase_shard_train(report: dict) -> None:
     torch.cuda.empty_cache()
     if state[2] is None:
         raise AssertionError("(b): the pod mesh's step keeps no err state")
-    _shard_bytes(mesh, state)
+    report["shard_bytes"]["2,1,2"] = _shard_bytes(mesh, state)
     for i in range(SHARD_COMPRESS_STEPS):
         batch = data.batch_at(SHARD_TRAIN_STEPS + i)
         ref = _unsharded_metrics(cfg, ccfg, state, batch, compress=True)
@@ -3209,6 +3248,191 @@ def phase_shard_train(report: dict) -> None:
     if not same or float(m["loss"]) != float(want["loss"]):
         raise AssertionError("(d): the state restored on 1x1 gives another next loss")
     torch.cuda.empty_cache()
+
+
+DRY_TRAIN_LAYERS = 8    # (a): Qwen3-1.7B at 8 of its 28 layers, counted on the card and on meta
+DRY_DECODE_SEQ = 4096   # (c): Yi-6B's serving max_seq, 64 blocks of 64, every one valid
+DRY_CELLS = (("qwen3_1_7b", "train_4k"), ("qwen3_moe_30b_a3b", "decode_32k"),
+             ("zamba2_7b", "long_500k"))  # (d), on the (16, 16) meta mesh
+
+
+def _dry_shape(name: str, kind: str, seq: int, batch: int):
+    """A cell shape of this script's own, added to ``dryrun.SHAPES`` for the
+    block."""
+    from repro_torch.launch import dryrun
+
+    @contextlib.contextmanager
+    def ctx():
+        dryrun.SHAPES[name] = dict(kind=kind, seq=seq, batch=batch)
+        try:
+            yield name
+        finally:
+            dryrun.SHAPES.pop(name, None)
+
+    return ctx()
+
+
+def phase_dryrun(report: dict) -> None:
+    """Phase 23: the dry run (``launch.dryrun``) against the card.  (a) one
+    Qwen3-1.7B training step (DRY_TRAIN_LAYERS layers, phase 19's 4 x
+    TRAIN_SEQ, remat) run on the card under the op count and counted on
+    meta: FLOPs and op bytes equal; the counted temp + argument bytes beside
+    the step's peak allocation, the FLOPs beside 6·N·T.  (b) the counted
+    bytes a shard of phase 22's (2, 2) and (2, 1, 2) states equal the bytes
+    phase 22 measured.  (c) a Yi-6B decode step (YI_LAYERS, 4 rows, every
+    one of the 64 store slots valid), packed and huffman: the charged Fetch
+    and Store bytes equal ``fetch_bound_ms`` / ``store_bound``'s for those
+    shapes, and the counted roofline time is at most the step's device busy
+    time.  (d) three production cells counted on meta meshes."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import cache as kvcache
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_train_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+
+    card = card_line()
+    one = {d: make_host_mesh(devices=[d]) for d in ("cuda", "meta")}
+    print(f"  (a) Qwen3-1.7B, {DRY_TRAIN_LAYERS} of 28 layers, one step of 4 x {TRAIN_SEQ}: "
+          f"on the card under the count, and on meta", flush=True)
+    full = dataclasses.replace(registry.get_config("qwen3_1_7b"), dtype="float32")
+    cfg = dataclasses.replace(full, n_layers=DRY_TRAIN_LAYERS)
+    kw = dict(microbatches=1, q_chunk=TRAIN_SEQ, kv_chunk=TRAIN_SEQ)
+    with _dry_shape("chip_train", "train", TRAIN_SEQ, 4) as shape:
+        counts = {}
+        for dev in ("meta", "cuda"):
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            cell = dryrun.build_cell(cfg, shape, one[dev], device=dev, **kw)
+            counter, mem = dryrun.count_cell(cell)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            counts[dev] = (counter, mem, peak, time.monotonic() - t0)
+            del cell
+        mflops = dryrun.model_flops(cfg, shape)
+    (cm, mm, _, sm), (cc, mc, peak, sc) = counts["meta"], counts["cuda"]
+    print(f"  meta: {cm.flops:.6e} FLOPs, {cm.bytes:.6e} op bytes, {len(cm.rows)} ops ({sm:.1f} "
+          f"s); cuda: {cc.flops:.6e} FLOPs, {cc.bytes:.6e} op bytes, {len(cc.rows)} ops "
+          f"({sc:.1f} s); op for op equal: {cm.rows == cc.rows}")
+    if (cm.flops, cm.bytes) != (cc.flops, cc.bytes):
+        first = next((i for i, (a, b) in enumerate(zip(cm.rows, cc.rows)) if a != b), None)
+        raise AssertionError(f"(a): the meta count {cm.flops} FLOPs / {cm.bytes} B differs from "
+                             f"the card's {cc.flops} / {cc.bytes}; first differing op {first}: "
+                             f"{None if first is None else (cm.rows[first], cc.rows[first])}")
+    want = mm["temp_bytes"] + mm["argument_bytes"]
+    print(f"  counted temp + argument bytes {want / 2**30:.3f} GiB ({mm}), the card's peak "
+          f"allocation {peak / 2**30:.3f} GiB: ratio {want / peak:.3f} [{card}]")
+    print(f"  counted FLOPs {cm.flops:.6e} against model_flops' 6·N·T {mflops:.6e}: ratio "
+          f"{cm.flops / mflops:.3f}")
+    report["dryrun"] = dict(train_flops=cm.flops, train_bytes=cm.bytes,
+                            mem_ratio=want / peak, flops_ratio=cm.flops / mflops)
+    del counts, cm, cc
+    torch.cuda.empty_cache()
+
+    print("  (b) the counted bytes a shard of phase 22's states", flush=True)
+    with _dry_shape("chip_train", "train", TRAIN_SEQ, 4) as shape:
+        for spec, compress in (("2,2", False), ("2,1,2", True)):
+            n = int(np.prod([int(x) for x in spec.split(",")]))
+            mesh = make_train_mesh(spec, devices=["meta"] * n)
+            cell = dryrun.build_train_cell(full, shape, mesh, grad_compress=compress, **kw)
+            got = {k: cell.parts[k] for k in ("params", "moments", "err") if cell.parts[k]}
+            measured = report["shard_bytes"][spec]
+            print(f"  {spec}: counted {got}, phase 22 measured {measured}")
+            if got != measured:
+                raise AssertionError(f"(b) {spec}: counted shard bytes {got} != measured "
+                                     f"{measured}")
+
+    print(f"  (c) a Yi-6B decode step, {YI_LAYERS} layers, {B} rows, each with "
+          f"{DRY_DECODE_SEQ} tokens: every store slot valid", flush=True)
+    base = dataclasses.replace(registry.get_config("yi_6b"), n_layers=YI_LAYERS,
+                               dtype="float32")
+    params = M.init_params(base, seed=0, device="cuda")
+    for layout in ("packed", "huffman"):
+        cfg = dataclasses.replace(base, cache_layout=layout)
+        spec = M.cache_spec(cfg, DRY_DECODE_SEQ)
+        hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        state = {"kv": []}
+        for _ in range(cfg.n_layers):
+            k, v = (torch.randn((B, hkv, DRY_DECODE_SEQ, dh), generator=gen, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2))
+            state["kv"].append(kvcache.prefill(spec, k, v))
+        del k, v
+        tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        position = torch.full((B,), DRY_DECODE_SEQ, dtype=torch.int32, device="cuda")
+        runtime.reset_launches()
+        wall, groups, _ = _profiled(lambda: M.decode_step(params, cfg, tokens, position, state))
+        launched = {k: v // 2 for k, v in runtime.launches.items() if v}  # two steps ran
+        busy = sum(ms for ms, _ in groups.values())
+        with _dry_shape("chip_decode", "decode", DRY_DECODE_SEQ, B) as shape:
+            counter, _ = dryrun.count_cell(dryrun.build_cell(cfg, shape, one["meta"]))
+        fb = fetch_bound_ms(spec, [spec.n_blocks] * B, [0] * B, hkv=hkv,
+                            g_=cfg.n_heads // hkv, d_=dh, whole_slots=True)
+        fetch = "fused_kv_attn" + ("_huffman" if layout == "huffman" else "")
+        k = counter.kernels[fetch]
+        checks = [("Fetch", k["bytes"] / k["calls"], fb["nbytes"])]
+        if layout == "packed":
+            st = counter.kernels["pack_encode"]
+            checks.append(("Store", st["bytes"] / st["calls"],
+                           store_bound(spec, B, B, hkv=hkv, d_=dh)[0]))
+        roof = dryrun.roofline_terms(counter.numbers(), 1)
+        roof_ms = 1e3 * max(roof["compute_s"], roof["memory_s"])
+        print(f"  {layout}: charged {', '.join(f'{n} {got:.0f} B a call (bound {w} B)' for n, got, w in checks)}; "
+              f"{ {n: v['calls'] for n, v in counter.kernels.items()} } charged calls, "
+              f"{launched} launched a step; roofline {roof_ms:.3f} ms (compute "
+              f"{1e3 * roof['compute_s']:.3f}, memory {1e3 * roof['memory_s']:.3f}) against "
+              f"device busy {busy:.3f} ms, wall {wall:.2f} ms [{card}]")
+        for n, got, w in checks:
+            if got != w:
+                raise AssertionError(f"(c) {layout}: charged {n} bytes {got} != the bound's {w}")
+        if {n: v["calls"] for n, v in counter.kernels.items()} != launched:
+            raise AssertionError(f"(c) {layout}: charged calls {counter.kernels} against the "
+                                 f"step's launches {launched}")
+        if not roof_ms <= busy:
+            raise AssertionError(f"(c) {layout}: roofline {roof_ms} ms above the busy {busy} ms")
+        report["dryrun"][layout] = dict(roofline_ms=roof_ms, busy_ms=busy, wall_ms=wall)
+        del state
+    del params
+    torch.cuda.empty_cache()
+
+    print("  (d) production cells on meta meshes", flush=True)
+    saved = dryrun.ARTIFACTS
+    dryrun.ARTIFACTS = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        for arch, shape in DRY_CELLS:
+            t0 = time.monotonic()
+            if dryrun.SHAPES[shape]["kind"] == "train":  # the analysis counts alone
+                mesh = dryrun.meta_mesh(False)
+                cfg = registry.get_config(arch)
+                rec = {"status": "ok", "analysis": dryrun.run_analysis(cfg, shape, mesh)}
+                rec["roofline"] = dryrun.roofline_terms(
+                    rec["analysis"], mesh.size, dryrun.analytic_memory_bytes(cfg, shape,
+                                                                             mesh.size))
+            else:
+                rec = dryrun.run_cell(arch, shape, "pod", force=True)
+            secs = time.monotonic() - t0
+            if rec["status"] != "ok":
+                raise AssertionError(f"(d) {arch} {shape}: {rec.get('error')}")
+            r = rec["roofline"]
+            print(f"  {arch} {shape} (16, 16): {secs:.1f} host s; per device {rec['analysis']['flops']:.4e} "
+                  f"FLOPs, {rec['analysis']['bytes']:.4e} B, copies "
+                  f"{rec['analysis']['collectives']['total']:.4e} B; compute {r['compute_s']:.4f} "
+                  f"s, memory {r['memory_s']:.4f} s, analytic {r['memory_analytic_s']:.4f} s, "
+                  f"copies {r['collective_s']:.4f} s: {r['bottleneck']}-bound"
+                  + (f"; temp {rec['memory']['temp_bytes'] / 2**30:.2f} GiB" if "memory" in rec
+                     else ""))
+    finally:
+        shutil.rmtree(dryrun.ARTIFACTS, ignore_errors=True)
+        dryrun.ARTIFACTS = saved
 
 
 def fetch_cases() -> dict:
@@ -3362,10 +3586,7 @@ def phase_times(report: dict) -> list[dict]:
         kb, vb, slots = kb[:, :, None], vb[:, :, None], slots[:, None]
         ms = timed(lambda: pack_encode.pack_encode(kb, vb, slots, *st, **skw))
         nrows = int((slots < st[0].shape[2]).sum())
-        n_val = 2 * nrows * HKV * T * D
-        s_bytes = (n_val * 2 + slots.numel() * 4
-                   + nrows * HKV * (4 * (spec.words_k(D) + spec.words_v(D)) + 2 * 2 * (D + T)))
-        b_ms, b_by = bound(s_bytes, 4 * n_val)
+        b_ms, b_by = bound(*store_bound(spec, nrows, slots.numel()))
         plain = None
         if name.startswith("decode step, every"):
             plain = timed(lambda: pack_encode.pack_encode_plain(kb, vb, slots, *st, **skw))
@@ -3699,6 +3920,11 @@ def main() -> int:
     phase("[22] sharded training: Qwen3-1.7B over (data, model) and (pod, data, model) meshes, "
           "Qwen3-30B-A3B, elastic resume")
     phase_shard_train(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[23] the dry run against the card: a training step and a decode step counted on "
+          "the card and on meta, shard bytes, production cells")
+    phase_dryrun(report)
     phase("[10] kernel times")
     kernels = phase_times(report)
     mk, mf, zk = report["mixtral_kernels"], report["mixtral_fetch_err"], report["zamba_kernels"]

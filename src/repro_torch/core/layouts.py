@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitpack, huffman
+from repro_torch.kernels import runtime
 from repro_torch.obs.profiling import annotate
 
 RAW_BITS_PER_VALUE = 16  # KV caches are bf16 at rest
@@ -221,12 +222,12 @@ def scatter_slots(store: torch.Tensor, slots: torch.Tensor,
     ok = (flat >= 0) & (flat < NBs)
     rows = (torch.arange(B, device=dev).repeat_interleave(n) if Bs > 1
             else torch.zeros(E, dtype=torch.long, device=dev))
-    if dev.type == "cpu" and ok.any():
+    if dev.type == "cpu" and not runtime.charging() and ok.any():
         live = rows[ok] * NBs + flat[ok]
         if len(torch.unique(live)) != len(live):
             raise RuntimeError("two live writes target one store slot")
     rep = torch.argmax(ok.to(torch.int32))  # first live entry (0 if none)
-    any_ok = ok[rep]
+    any_ok = ok[rep[None]][0]  # a tensor index: no host read of rep
     src = torch.where(ok, torch.arange(E, device=dev), rep)
     zero = torch.zeros_like(flat)
     tb = torch.where(any_ok, rows[src], zero)
@@ -292,6 +293,11 @@ class CacheLayout:
                     book: huffman.CodeBook | None = None) -> RatioReport:
         """Exact accounting of an offline-quantized tensor (``core.quant``)
         stored under this layout."""
+        raise NotImplementedError
+
+    def bytes_per_token(self, spec, n_kv_heads: int, head_dim: int) -> float:
+        """Analytic device bytes a cached token and layer (payload and
+        scales): the dry run's roofline model (``launch.dryrun``)."""
         raise NotImplementedError
 
     def tile_decode(self, spec, head_dim: int) -> FusedTileSpec | None:
@@ -373,6 +379,9 @@ class RawLayout(CacheLayout):
     def size_report(self, q, *, block_size, head_dim, kivi_bits=2, book=None):
         return raw_ratio(q)
 
+    def bytes_per_token(self, spec, n_kv_heads, head_dim):
+        return 2.0 * n_kv_heads * head_dim * 2  # K and V, bf16
+
 
 @register_layout("packed")
 class PackedLayout(CacheLayout):
@@ -420,6 +429,12 @@ class PackedLayout(CacheLayout):
 
     def size_report(self, q, *, block_size, head_dim, kivi_bits=2, book=None):
         return packed_ratio(q, block_size * head_dim)
+
+    def bytes_per_token(self, spec, n_kv_heads, head_dim):
+        payload = n_kv_heads * head_dim * (spec.bits_k + spec.bits_v) / 8
+        # scales: K a (block, channel), V a token, each a bf16 minimum and step
+        meta = n_kv_heads * (2 * head_dim * 2 * 2 / spec.block_size + 2 * 2)
+        return payload + meta
 
 
 @register_layout("kivi")

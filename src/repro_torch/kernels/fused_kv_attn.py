@@ -19,7 +19,8 @@ huffman tiles and ``_paged`` with a page table.
 
 ``fused_cache_attention`` takes the plain version (``ref.
 fused_cache_attention_ref``) only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  Under the dry run's op count it launches
+nothing and charges the kernel's work (``work``) instead.
 """
 
 from __future__ import annotations
@@ -50,7 +51,10 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
     q f32 [B, Hq, D]; stores/units/buffers as ``LayerKVCache`` holds them;
     nb_valid (already clamped to NB) and buf_len int32 [B].  ``page_tab``
     int32 [B, NB] marks a paged cache: the stores are then the shared arena
-    [1, Hkv, P, ...]."""
+    [1, Hkv, P, ...].  Under an op count (``runtime.charging``) it charges
+    ``work`` and returns an empty output."""
+    if runtime.charging():
+        return _charged(q, k_store, page_tab, tile, block_size)
     if q.device.type == "cpu":
         return plain(q, k_store, k_min, k_step, v_store, v_min, v_step, k_buf,
                      v_buf, nb_valid, buf_len, page_tab, tile=tile,
@@ -106,6 +110,38 @@ def fused_cache_attention(q, k_store, k_min, k_step, v_store, v_min, v_step,
         tile.probes_v, float(scale), *runtime.stream_args(dev),
         count=NAME + ("_huffman" if huff else "") + ("_paged" if paged else ""))
     return out
+
+
+def work(B: int, Hkv: int, G: int, D: int, T: int, NB: int, tile,
+         paged: bool) -> tuple[int, int]:
+    """(bytes, operations) of a call that reads all NB ring slots (or
+    pages) of every (row, KV head) and no buffer token: the tiles, q in,
+    the output out, the two lengths and the page table; the scores and
+    P.V products of every block, the scales folded into them (the bound of
+    ``chip_smoke.fetch_bound_ms``).  Huffman slots count whole (header and
+    worst-case payload), and the two LUTs once."""
+    live = B * Hkv * NB
+    if tile.kind == "raw":
+        blocks = live * 2 * T * D * 2
+        per_blk = 4 * G * T * D + G * T
+    else:
+        blocks = live * (4 * (tile.k_tile[0] + tile.v_tile[0]) + 2 * 2 * (D + T))
+        if tile.kind == "huffman":
+            blocks += 4 * (tile.book_k.decode_lut().size + tile.book_v.decode_lut().size)
+        per_blk = 4 * G * T * D + 2 * G * D + 3 * G * T
+    nbytes = blocks + 2 * B * Hkv * G * D * 4 + 2 * B * 4 + (B * NB * 4 if paged else 0)
+    return nbytes, live * per_blk
+
+
+def _charged(q, k_store, page_tab, tile, block_size: int) -> torch.Tensor:
+    B, Hq, D = q.shape
+    Hkv = k_store.shape[1]
+    paged = page_tab is not None
+    NB = page_tab.shape[-1] if paged else k_store.shape[2]
+    nbytes, flops = work(B, Hkv, Hq // Hkv, D, block_size, NB, tile, paged)
+    name = NAME + ("_huffman" if tile.kind == "huffman" else "") + ("_paged" if paged else "")
+    runtime.charge(name, nbytes, flops, "tf32", passes=2)  # TF32 hi and lo
+    return torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
 
 
 def check_shape(Hq: int, Hkv: int, D: int, T: int) -> None:

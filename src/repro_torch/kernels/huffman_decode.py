@@ -18,7 +18,8 @@ versions.
 Each wrapper takes its plain version (``kernels.ref`` and ``core.huffman``)
 only for CPU tensors; for CUDA tensors it launches its kernel or raises (the
 walk kernels raise where two blocks' payload, bit counts and code rows do
-not fit a CTA's shared memory).  Words are
+not fit a CTA's shared memory); under the dry run's op count each charges
+its kernel's work and launches nothing.  Words are
 int32 tensors holding u32 bit patterns; bit counts are int32 tensors of u16
 values; tree tables are ``CodeBook.as_device_tables``.
 """
@@ -75,6 +76,11 @@ def huffman_decode(payload, nbits, children, is_symbol, symbols, n_per_stream: i
     """Decode every block: payload int32 [NBLK, W], nbits int32 [NBLK, S],
     tree tables int32 [MAXN, 2] / [MAXN] / [MAXN] -> uint8 [NBLK, S,
     n_per_stream]."""
+    if runtime.charging():
+        NBLK, S = nbits.shape
+        runtime.charge(NAME, _walk_bytes(payload, nbits, children) + NBLK * S * n_per_stream,
+                       32 * payload.numel())
+        return torch.empty((NBLK, S, n_per_stream), dtype=torch.uint8, device=payload.device)
     if payload.device.type == "cpu":
         return huffman_decode_plain(payload, nbits, children, is_symbol, symbols,
                                     n_per_stream, max_bits)
@@ -93,6 +99,13 @@ def huffman_attn_scores(payload, nbits, children, is_symbol, symbols, k_min, k_s
                         max_bits: int, scale: float = 1.0) -> torch.Tensor:
     """Walk decode + K dequant + scores: k_min / k_step f32 [NBLK, D], q f32
     [D] -> f32 [NBLK, S] (one stream a cached token)."""
+    if runtime.charging():
+        NBLK, S = nbits.shape
+        D = q.shape[-1]
+        runtime.charge("huffman_attn_scores",
+                       _walk_bytes(payload, nbits, children) + 2 * 4 * NBLK * D + 4 * D
+                       + 4 * NBLK * S, 32 * payload.numel() + 4 * NBLK * S * D)
+        return torch.empty((NBLK, S), dtype=torch.float32, device=payload.device)
     if payload.device.type == "cpu":
         return huffman_attn_scores_plain(payload, nbits, children, is_symbol, symbols, k_min,
                                          k_step, q, max_bits, scale)
@@ -120,6 +133,8 @@ def huffman_lut_decode(slots, lut, *, block_size: int, head_dim: int, hdr_words:
     bit counts of ``block_size`` streams, then the payload), the flat LUT
     int32 -> codes uint8 [N, block_size, head_dim].  ``multi``: the book's
     multi-symbol table, or None (the kernel then probes the LUT)."""
+    if runtime.charging():
+        return _lut_charge(((slots, lut, multi, hdr_words, probes),), block_size, head_dim)[0]
     if slots.device.type == "cpu":
         return huffman_lut_decode_plain(slots, lut, block_size=block_size, head_dim=head_dim,
                                         hdr_words=hdr_words, probes=probes)
@@ -130,11 +145,35 @@ def huffman_lut_decode_kv(k, v, *, block_size: int, head_dim: int):
     """The slot decode of K and V in one launch: ``k`` and ``v`` are each
     ``(slots, lut, multi, hdr_words, probes)`` as ``huffman_lut_decode``
     takes them -> (K codes, V codes)."""
+    if runtime.charging():
+        return _lut_charge((k, v), block_size, head_dim)
     if k[0].device.type == "cpu":
         return tuple(huffman_lut_decode_plain(sl, lut, block_size=block_size, head_dim=head_dim,
                                               hdr_words=hw, probes=pr)
                      for sl, lut, _, hw, pr in (k, v))
     return _lut_launch((k, v), block_size, head_dim)
+
+
+def _walk_bytes(payload, nbits, children) -> int:
+    """Bytes a walk kernel reads under an op count: every payload word (the
+    words a stream fills depend on the data), the bit counts and the three
+    tree tables once.  Its operations: one a payload bit."""
+    return 4 * payload.numel() + 4 * nbits.numel() + 4 * 4 * children.shape[0]
+
+
+def _lut_charge(tensors, T: int, D: int) -> tuple:
+    """Charge one slot-decode launch under an op count: every slot word, the
+    LUT once and the codes out (bytes); one operation a code and probe.
+    Returns empty codes."""
+    nbytes = ops = 0
+    outs = []
+    for slots, lut, _, _, probes in tensors:
+        N = slots.shape[0]
+        nbytes += 4 * slots.numel() + 4 * lut.numel() + N * T * D
+        ops += N * T * D * probes
+        outs.append(torch.empty((N, T, D), dtype=torch.uint8, device=slots.device))
+    runtime.charge("huffman_lut_decode", nbytes, ops)
+    return tuple(outs)
 
 
 def _lut_launch(tensors, T: int, D: int) -> tuple:

@@ -20,6 +20,7 @@ import os
 
 import torch
 
+from repro_torch.kernels import runtime
 from repro_torch.kernels.fused_kv_attn import fused_cache_attention  # noqa: F401  (entry point)
 from repro_torch.kernels.huffman_decode import (  # noqa: F401  (entry points)
     huffman_attn_scores, huffman_decode)
@@ -52,7 +53,9 @@ def resolve_backend(backend: str | None, layout, device: torch.device) -> str:
     if name == "auto":
         name = os.environ.get(ENV_BACKEND) or "auto"
     if name == "auto":
-        name = "fused" if (device.type == "cuda" and layout.supports_fused) else "xla"
+        # an op count charges what the card runs, wherever the tensors are
+        on_card = device.type == "cuda" or runtime.charging()
+        name = "fused" if (on_card and layout.supports_fused) else "xla"
     if name == "fused" and not layout.supports_fused:
         name = "xla"
     if name not in _BACKENDS:

@@ -12,7 +12,8 @@ whose slot is the drop sentinel (``slot >=`` the store's block extent)
 write nothing, so the decode path launches it on every step without a
 host-side check.
 ``pack_encode`` takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises.  Under the dry run's op count it
+launches nothing and charges the kernel's work (``work``) instead.
 """
 
 from __future__ import annotations
@@ -52,7 +53,12 @@ def pack_encode(kb, vb, slots, k_store, k_min, k_step, v_store, v_min, v_step,
     kb/vb [B, H, n, T, D] raw blocks (bf16 or f32); slots int32 [B, n] ring
     slots or arena pages (>= NB drops the row); k_store/v_store int32
     [Bs, H, NB, W]; k_min/k_step bf16 [Bs, H, NB, D]; v_min/v_step bf16
-    [Bs, H, NB, T], where Bs is B (rings) or 1 (the paged arena, NB = P)."""
+    [Bs, H, NB, T], where Bs is B (rings) or 1 (the paged arena, NB = P).
+    Under an op count (``runtime.charging``) it charges ``work`` with every
+    row flushing and writes nothing."""
+    if runtime.charging():
+        return _charge(kb.shape, kb.element_size(),
+                       ((k_store.shape[-1], False), (v_store.shape[-1], True)))
     if kb.device.type == "cpu":
         return pack_encode_plain(
             kb, vb, slots, k_store, k_min, k_step, v_store, v_min, v_step,
@@ -69,11 +75,17 @@ def quant_pack(x: torch.Tensor, *, rel_scale: float, bits: int, token_wise: bool
     what the cache stores (the reference's ``ops.quant_pack`` returns the
     float32 scales before that rounding)."""
     NBLK, T, D = x.shape
+    cpw = 32 // bits
+    U = T if token_wise else D
+    if runtime.charging():
+        _charge((1, 1, NBLK, T, D), x.element_size(), (((T * D + cpw - 1) // cpw, token_wise),))
+        return (torch.empty((NBLK, (T * D + cpw - 1) // cpw), dtype=torch.int32,
+                            device=x.device),
+                torch.empty((NBLK, U), dtype=torch.bfloat16, device=x.device),
+                torch.empty((NBLK, U), dtype=torch.bfloat16, device=x.device))
     if x.device.type == "cpu":
         words, mn, st = quant_pack_ref(x, rel_scale, bits, token_wise, kivi)
         return words, mn.to(torch.bfloat16), st.to(torch.bfloat16)
-    cpw = 32 // bits
-    U = T if token_wise else D
     # one row of NBLK blocks into ring slots 0 .. NBLK-1
     words = torch.empty((1, 1, NBLK, (T * D + cpw - 1) // cpw), dtype=torch.int32,
                         device=x.device)
@@ -83,6 +95,29 @@ def quant_pack(x: torch.Tensor, *, rel_scale: float, bits: int, token_wise: bool
     _launch(((x.reshape(1, 1, NBLK, T, D), words, mn, st, bits, rel_scale, kivi,
               token_wise),), slots)
     return words.reshape(NBLK, -1), mn.reshape(NBLK, U), st.reshape(NBLK, U)
+
+
+def work(B: int, H: int, n: int, T: int, D: int, elem: int, words: int,
+         token_wise: bool) -> tuple[int, int]:
+    """(bytes, operations) of encoding one tensor's n blocks of each (row,
+    head), every block written: the raw values in, the words and the bf16
+    minimum and step of each unit out; 4 operations a value (min/max,
+    quantize, pack), the bound of ``chip_smoke.py`` phase 10's Store rows.
+    The slots (4 bytes a block of a row) are charged once a launch."""
+    blocks = B * H * n
+    U = T if token_wise else D
+    return blocks * (T * D * elem + 4 * words + 2 * 2 * U), 4 * blocks * T * D
+
+
+def _charge(shape, elem: int, tensors) -> None:
+    """Charge one launch over blocks of ``shape`` [B, H, n, T, D] for each
+    (words a block, token_wise) descriptor, every row flushing."""
+    B, H, n, T, D = shape
+    nbytes, flops = 4 * B * n, 0
+    for words, tok in tensors:
+        b, f = work(B, H, n, T, D, elem, words, tok)
+        nbytes, flops = nbytes + b, flops + f
+    runtime.charge(NAME, nbytes, flops)
 
 
 def _launch(tensors, slots) -> None:

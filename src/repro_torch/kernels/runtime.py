@@ -42,6 +42,12 @@ launches = {name: 0 for name in (
     "fused_kv_attn_huffman_paged", "pack_encode", "huffman_decode",
     "huffman_attn_scores", "huffman_lut_decode")}
 
+# The dry run's op count (``launch.dryrun.OpCount``) while one is active:
+# each kernel wrapper then charges it the work its kernel would do on these
+# shapes and returns an empty output, launching nothing, whatever device
+# the tensors are on.  Outside a count a wrapper never looks at it.
+_charge_to = None
+
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # ptxas register / shared-memory report
 
@@ -58,6 +64,32 @@ def resolve_device(device) -> torch.device:
     elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"device must be cuda or cpu, got {device!r}")
     return dev
+
+
+def charging() -> bool:
+    """Is an op count active (kernel wrappers charge it and launch nothing)?"""
+    return _charge_to is not None
+
+
+def charge(name: str, nbytes: float, flops: float, rate: str = "float32",
+           passes: int = 1) -> None:
+    """Charge the active count one call of kernel ``name``: ``nbytes`` moved
+    and ``flops`` operations, run ``passes`` times on the units of ``rate``
+    (``"float32"`` or ``"tf32"``; the Fetch runs each product as two TF32
+    products)."""
+    _charge_to.kernel(name, nbytes, flops, rate, passes)
+
+
+@contextlib.contextmanager
+def charging_to(counter):
+    """Within the block, kernel wrappers charge ``counter`` and launch
+    nothing; the previous state comes back on exit, also on an exception."""
+    global _charge_to
+    saved, _charge_to = _charge_to, counter
+    try:
+        yield counter
+    finally:
+        _charge_to = saved
 
 
 def reset_launches() -> None:

@@ -101,6 +101,16 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def has_attention(self) -> bool:
+        return self.family in ("dense", "moe", "hybrid")
+
+    @property
+    def supports_long_context_decode(self) -> bool:
+        """Sub-quadratic long decode: ssm and hybrid natively, a sliding
+        window by its cap."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
     def param_count(self) -> int:
         """Analytic parameter count of the four families."""
         d, v = self.d_model, self.vocab_size

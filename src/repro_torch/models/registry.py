@@ -27,6 +27,9 @@ ARCHS = [
     "ministral_8b",
 ]
 
+# The archs of the production dry run (``launch.dryrun --all``).
+ASSIGNED = ARCHS[:10]
+
 
 def canonical(name: str) -> str:
     name = name.replace("-", "_").replace(".", "_")

@@ -218,6 +218,15 @@ def _count(part: dict) -> torch.Tensor:
     return torch.clamp(mask.to(torch.float32).sum(), min=1.0)
 
 
+def n_batch_shards(cfg: ModelConfig, scfg: TrainStepConfig, mesh: Mesh, batch: int) -> int:
+    """How many batch shards the sharded step splits a microbatch over: one
+    a (pod, data) index, or 1 (the whole batch on the first device) for MoE
+    and for a microbatch the shards do not divide."""
+    n = len(shd.data_shards(mesh))
+    bp = batch // max(scfg.microbatches, 1)
+    return n if cfg.family != "moe" and bp % n == 0 else 1
+
+
 def _sharded_loss_and_grads(cfg, scfg, mesh, shards, params, batch, pshard):
     """(loss, parts, the gradient as pieces by ``pshard`` in leaf order)."""
     home = mesh.home
@@ -225,7 +234,7 @@ def _sharded_loss_and_grads(cfg, scfg, mesh, shards, params, batch, pshard):
     mb = max(scfg.microbatches, 1)
     B = next(iter(batch.values())).shape[0]
     bp = B // mb
-    n = len(shards) if cfg.family != "moe" and bp % len(shards) == 0 else 1
+    n = n_batch_shards(cfg, scfg, mesh, B)
     if n == 1:  # the whole batch on the first device (MoE, or a batch the shards do not divide)
         full = tree.unflatten(params, [shd.gather(x, home) for x in pleaves])
         loss, parts, g = loss_and_grads(cfg, scfg, full,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card, dense
-and paged (marked ``cuda``; each test skips itself where there is no card).  No JAX
-here, so the file also runs where JAX is not installed:
+and paged (marked ``cuda``).  The file skips as a whole under a PyTorch built
+without CUDA, and each test skips itself where there is no card.  No JAX here, so
+the file also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if torch.version.cuda is None:
+    pytest.skip("this PyTorch build has no CUDA: the CUDA kernels have no CPU mode",
+                allow_module_level=True)
 
 from repro_torch.core import cache as TC  # noqa: E402
 from repro_torch.core import pool as TP  # noqa: E402
