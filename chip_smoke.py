@@ -22,14 +22,23 @@ before the result lines:
    version for the packed, kivi, raw and huffman layouts, each row's output
    bit-identical alone and in the batch, and two launches bit-identical;
    on the same blocks the huffman Fetch bit-identical to the packed Fetch;
-   the Store kernel's words and bf16 scales bit-exact, dropped rows
-   untouched.
+   the Fetch within MATERIALIZED_ATOL of the decompress-then-attend
+   baseline (``attend_materialized``: the whole ring dequantized, huffman
+   through the slot LUT decode kernel, then cuBLAS products) on the same
+   cache for all four layouts, and the raw Fetch within FETCH_ATOL of
+   ``reference_attend`` on each row's raw tokens; the Store kernel's words
+   and bf16 scales bit-exact, dropped rows untouched.
 4. Paged kernel vs plain at Yi-6B shapes (B=8, arena of 128 pages, shuffled
    page tables, ragged lengths, unassigned entries below a row's live
    blocks): the paged Fetch within FETCH_ATOL of its plain version for
    packed, kivi, raw and huffman, each row alone == in the batch, two
    launches bit-identical, and (no holes) bit-identical to the dense Fetch
-   on the same blocks; huffman bit-identical to packed on the same blocks;
+   on the same blocks; within MATERIALIZED_ATOL of ``attend_materialized``
+   (on the holed arena the rows without a hole below their live blocks,
+   whose hole the baseline reads and the Fetch skips; every row on the
+   arena without holes), the raw Fetch within FETCH_ATOL of
+   ``reference_attend`` on each row's raw tokens less its holes; huffman
+   bit-identical to packed on the same blocks;
    the Store into arena pages bit-exact, rows that do not flush or whose
    entry is unassigned leaving the arena untouched.
 11. Huffman decode kernels at Yi-6B width (NBLK = 4 heads x 64 blocks = 256,
@@ -280,7 +289,10 @@ before the result lines:
    one launch) and at phase 11's 256 K slots; the walk kernels at phase 11's
    shapes, with the default K book (the JSON rows) and the skewed book.  The
    raw dense Fetch is timed beside ``scaled_dot_product_attention`` on the
-   same bf16 tokens (the Fetch row's library time).
+   same bf16 tokens (the Fetch row's library time).  Each Fetch case is
+   also timed through ``attend_materialized`` (the decompress-then-attend
+   baseline; one line a layout and mode, with the card's name and power
+   limit).
 
 The last three lines are the card (nvidia-smi), a JSON line with one entry
 per kernel, and ``{"ok": true, "device": {...}}``.  ``--split-sweep`` builds
@@ -304,6 +316,10 @@ from pathlib import Path
 import numpy as np
 
 FETCH_ATOL = 1e-4      # Fetch kernel vs plain: float32 sums in another order
+# Fetch kernel vs the decompress-then-attend baseline (attend_materialized),
+# which rounds its dequantized values through bf16: the bound the reference
+# holds between its backends (tests/test_backends.py).
+MATERIALIZED_ATOL = 5e-3
 SCORES_ATOL = 1e-4     # huffman_attn_scores vs plain: float32 sums in another order
 MIN_AGREEMENT = 1.0    # batched vs solo greedy-token agreement: exact
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
@@ -542,6 +558,43 @@ def same_blocks_identical(nb_valid, buf_len, seed: int, holes=None, hkv: int = H
     print(f"  {mode} fetch on the same blocks: huffman output bit-identical to packed")
 
 
+def vs_materialized(c, q, got, rows=None) -> float:
+    """Max |Fetch output ``got`` - ``attend_materialized``| on the same cache
+    (over ``rows`` only when given); raises past MATERIALIZED_ATOL."""
+    import torch
+    from repro_torch.core import cache as kvcache
+
+    want = kvcache.attend_materialized(c, q)
+    torch.cuda.synchronize()
+    rows = list(range(q.shape[0])) if rows is None else rows
+    err = float((got[rows] - want[rows]).abs().max())
+    if not (err <= MATERIALIZED_ATOL and torch.isfinite(want).all()):
+        mode = "paged" if c.spec.paged else "dense"
+        raise AssertionError(f"Fetch kernel vs attend_materialized ({c.spec.layout}, {mode}): "
+                             f"max |err| {err}")
+    return err
+
+
+def vs_reference_attend(dense, q, got, nb_valid, buf_len, skip=()) -> float:
+    """Max |raw Fetch output ``got`` - ``reference_attend``| over each row's
+    raw tokens: the live blocks of the raw dense cache ``dense`` (but the
+    (row, slot) entries in ``skip``, which the Fetch skips) and its buffer;
+    raises past FETCH_ATOL."""
+    import torch
+    from repro_torch.core import cache as kvcache
+
+    err, h, d = 0.0, dense.k_buf.shape[1], dense.head_dim
+    for b, (nb, bl) in enumerate(zip(nb_valid, buf_len)):
+        blocks = [j for j in range(nb) if (b, j) not in skip]
+        k = torch.cat([dense.k_store[b, :, blocks].reshape(h, -1, d), dense.k_buf[b, :, :bl]], 1)
+        v = torch.cat([dense.v_store[b, :, blocks].reshape(h, -1, d), dense.v_buf[b, :, :bl]], 1)
+        want = kvcache.reference_attend(k[None], v[None], q[b:b + 1])
+        err = max(err, float((got[b:b + 1] - want).abs().max()))
+    if not err <= FETCH_ATOL:
+        raise AssertionError(f"raw Fetch kernel vs reference_attend: max |err| {err}")
+    return err
+
+
 def split_rule_checks(spec, c, q) -> None:
     """The Fetch's split rule on the card: two launches on the same inputs
     give the same bits, and each row's output is the same alone as beside
@@ -567,13 +620,16 @@ def split_rule_checks(spec, c, q) -> None:
 
 
 def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = None,
-                  d_: int = D, paged: bool = False, t_: int = T) -> None:
+                  d_: int = D, paged: bool = False, t_: int = T,
+                  materialized: bool = False) -> None:
     """Phase 3 (and 16(c) at Mixtral's ``hkv``, ``g_``; 17(a) at Zamba2's
     ``hkv``, ``g_``, ``d_``; 18 at block size ``t_`` 32, at Yi-6B's and the
     tiny LM's shapes): each kernel against its plain version on the card;
     ``paged`` adds the paged Fetch on the same caches re-housed in a
-    shuffled arena.  The errors go into ``report`` (under ``report[key]``
-    when given)."""
+    shuffled arena; ``materialized`` (phase 3) also holds the Fetch against
+    ``attend_materialized`` on the same cache, and the raw Fetch against
+    ``reference_attend`` on its raw tokens.  The errors go into ``report``
+    (under ``report[key]`` when given)."""
     import torch
     from repro_torch.kernels import fused_kv_attn, pack_encode
 
@@ -591,6 +647,16 @@ def phase_kernels(report: dict, hkv: int = HKV, g_: int = G, key: str | None = N
         if not (err <= FETCH_ATOL and torch.isfinite(got).all()):
             raise AssertionError(f"Fetch kernel vs plain ({layout}): max |err| {err}")
         print(f"  fetch {layout:7s} max|kernel-plain| = {err:.3e} (tol {FETCH_ATOL})")
+        if materialized:
+            m_err = vs_materialized(c, q, got)
+            out["materialized_err"] = max(out.get("materialized_err", 0.0), m_err)
+            line = (f"  fetch {layout:7s} max|kernel-attend_materialized| = {m_err:.3e} (tol "
+                    f"{MATERIALIZED_ATOL})")
+            if layout == "raw":
+                r_err = vs_reference_attend(c, q, got, nb_valid, buf_len)
+                out["reference_attend_err"] = r_err
+                line += f"; max|kernel-reference_attend| = {r_err:.3e} (tol {FETCH_ATOL})"
+            print(line)
         if layout == "huffman":
             out["fetch_huffman_err"] = err
         else:
@@ -694,8 +760,25 @@ def phase_paged_kernels(report: dict) -> None:
         full = make_paged(c, nb_valid, seed=i)
         fargs, _ = fetch_args(spec, full)
         dargs, _ = fetch_args(spec, c)
-        if not torch.equal(fused_kv_attn.fused_cache_attention(q, *fargs, **kw),
-                           fused_kv_attn.fused_cache_attention(q, *dargs, **kw)):
+        full_out = fused_kv_attn.fused_cache_attention(q, *fargs, **kw)
+        # The decompress-then-attend baseline masks by n_flushed alone: a hole
+        # below a row's live blocks reads the clamped page there (as in the
+        # reference), where the Fetch skips it.  So it is held against the
+        # holed arena on the rows without such a hole, and against the
+        # arena without holes on every row.
+        m_err = max(vs_materialized(pc, q, got, rows=[r for r in range(PB) if r not in
+                                                      {b for b, _ in holes}]),
+                    vs_materialized(full, q, full_out))
+        report["materialized_paged_err"] = max(report.get("materialized_paged_err", 0.0), m_err)
+        line = (f"  paged fetch {layout:7s} max|kernel-attend_materialized| = {m_err:.3e} (tol "
+                f"{MATERIALIZED_ATOL})")
+        if layout == "raw":
+            r_err = max(vs_reference_attend(c, q, got, nb_valid, buf_len, skip=holes),
+                        vs_reference_attend(c, q, full_out, nb_valid, buf_len))
+            report["reference_attend_paged_err"] = r_err
+            line += f"; max|kernel-reference_attend| = {r_err:.3e} (tol {FETCH_ATOL})"
+        print(line)
+        if not torch.equal(full_out, fused_kv_attn.fused_cache_attention(q, *dargs, **kw)):
             raise AssertionError(f"paged Fetch on a shuffled arena differs from dense on the "
                                  f"same blocks ({layout})")
         print(f"  paged fetch {layout:7s} on a shuffled arena bit-identical to dense on the "
@@ -3491,7 +3574,9 @@ def sdpa_call(x: dict):
 def fetch_times(report: dict, cases: dict) -> list[dict]:
     """Phase 10, Fetch part: kernel and plain times of each case, its bound
     (and the float32 yardstick and the bytes alone), and the workspace the
-    split partials take; the JSON entries of the four Fetch rows."""
+    split partials take; then each case through the decompress-then-attend
+    baseline; the JSON entries of the four Fetch rows."""
+    from repro_torch.core import cache as kvcache
     from repro_torch.kernels import fused_kv_attn
 
     split = fused_kv_attn.split_blocks()
@@ -3521,6 +3606,13 @@ def fetch_times(report: dict, cases: dict) -> list[dict]:
               f"{bd['f32_ms']:.6f} ms, {bd['f32_by']}), {ms / bd['bound_ms']:.0f}x the bound; "
               f"split workspace {ws} B; {steps[layout]} launches/decode step")
         rows[layout, mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+    card = card_line()
+    for (layout, mode), x in cases.items():
+        m_ms = timed(lambda x=x: kvcache.attend_materialized(x["c"], x["q"]), iters=10)
+        rows[layout, mode]["materialized_ms"] = m_ms
+        print(f"  attend_materialized ({layout}, {mode}, B={len(x['nb'])}): {m_ms:.4f} ms, "
+              f"{m_ms / rows[layout, mode]['ms']:.1f}x the Fetch kernel's "
+              f"{rows[layout, mode]['ms']:.4f} ms; {card}")
     report["fetch_rows"] = rows
     entries = []
     # The raw tiles' library call is the Fetch row's library time; no single
@@ -3875,7 +3967,7 @@ def main() -> int:
         print(label, flush=True)
 
     print("[3] kernels vs plain at Yi-6B shapes", flush=True)
-    phase_kernels(report)
+    phase_kernels(report, materialized=True)
     phase("[4] paged kernels vs plain at Yi-6B shapes")
     phase_paged_kernels(report)
     phase("[11] huffman decode kernels at Yi-6B width")

@@ -17,7 +17,11 @@ This script walks:
 
 1.  Quantize + entropy-code a KV tensor, print the ratio accounting.
 2.  Build a compressed KV cache, append tokens, attend, and compare with
-    exact attention, for every registered layout.
+    exact attention (``cache.reference_attend``), for every registered
+    layout.
+3.  The fused Fetch against the decompress-then-attend baseline
+    (``cache.attend_materialized``), and on the card against its plain
+    version too.
 
 It runs on the card (the Fetch and Store kernels), or with ``--device cpu``
 on their plain PyTorch versions:
@@ -26,22 +30,24 @@ on their plain PyTorch versions:
 """
 
 import argparse
-import math
 
 import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.core import cache as kvcache
 from repro_torch.core.policy import CompressionPolicy, TensorPolicy
+from repro_torch.kernels import fused_kv_attn, ops
 
 
-def exact_attention(k, v, q):
-    """Exact GQA attention over raw [B, Hkv, S, D] KV (float32)."""
-    B, Hq, D = q.shape
-    Hkv = k.shape[1]
-    qg = q.reshape(B, Hkv, Hq // Hkv, D)
-    w = torch.softmax(torch.einsum("bhgd,bhsd->bhgs", qg, k) / math.sqrt(D), dim=-1)
-    return torch.einsum("bhgs,bhsd->bhgd", w, v).reshape(B, Hq, D)
+def fetch_plain(cache, q):
+    """The Fetch kernel's plain PyTorch version on the cache's tensors."""
+    spec = cache.spec
+    return fused_kv_attn.plain(
+        q, cache.k_store, cache.k_min, cache.k_step, cache.v_store, cache.v_min, cache.v_step,
+        cache.k_buf, cache.v_buf, torch.clamp(cache.n_flushed, max=spec.n_blocks),
+        cache.buf_len, tile=spec.impl.tile_decode(spec, cache.head_dim),
+        block_size=spec.block_size)
 
 
 def main(argv=None):
@@ -77,9 +83,9 @@ def main(argv=None):
 
     # decode-time appending (paper §3.2.3): the same 3 tokens for every layout
     k_new, v_new = normal(3, B, Hkv, D), normal(3, B, Hkv, D)
-    ref = exact_attention(torch.cat([kc, k_new.permute(1, 2, 0, 3)], dim=2),
-                          torch.cat([vc, v_new.permute(1, 2, 0, 3)], dim=2), q)
-    sizes = {}
+    ref = kvcache.reference_attend(torch.cat([kc, k_new.permute(1, 2, 0, 3)], dim=2),
+                                   torch.cat([vc, v_new.permute(1, 2, 0, 3)], dim=2), q)
+    caches, sizes = {}, {}
     for layout in api.available_layouts():
         cache = api.compress(kc, vc, policy=policy(layout), max_seq=512, device=dev)
         for t in range(3):
@@ -87,13 +93,22 @@ def main(argv=None):
         err = float((api.attend(cache, q) - ref).abs().max())
         nbytes = sum(getattr(cache, f).numel() * getattr(cache, f).element_size()
                      for f in cache.FIELDS)
-        total = int(cache.n_flushed[0]) * cache.spec.block_size + int(cache.buf_len[0])
-        sizes[layout] = nbytes
-        print(f"  [{layout:8s}] total_len={total}  cache bytes={nbytes:>9,}  "
+        caches[layout], sizes[layout] = cache, nbytes
+        print(f"  [{layout:8s}] total_len={int(cache.total_len[0])}  cache bytes={nbytes:>9,}  "
               f"attend |Δ| vs exact={err:.3f}")
     for layout, nbytes in sizes.items():
         if layout != "raw":
             print(f"  {layout:8s} vs raw allocation: {sizes['raw'] / nbytes:.2f}x smaller")
+
+    print("=== 3. fused Fetch vs decompress-then-attend ===")
+    cache = caches["packed"]
+    fused = ops.cache_decode_attention(cache, q)  # the kernel on the card, plain on the CPU
+    if dev == "cuda":
+        err = float((fused - fetch_plain(cache, q)).abs().max())
+        print(f"  fetch kernel-vs-plain max diff: {err:.2e}")
+    what = "kernel" if dev == "cuda" else "plain"
+    err = float((fused - kvcache.attend_materialized(cache, q)).abs().max())
+    print(f"  fetch {what}-vs-materialized max diff: {err:.2e}")
     print("done.")
 
 

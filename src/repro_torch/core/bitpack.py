@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -170,3 +171,42 @@ def unpack_adaptive(packed: AdaptivePacked) -> torch.Tensor:
         words = packed.payload[torch.clamp(idx, max=packed.payload.shape[0] - 1)]
         out = torch.where((packed.bits == b)[:, None], unpack_bits(words, b, L), out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Numpy oracle (for kernel and property tests), as in the reference
+# ---------------------------------------------------------------------------
+
+
+def pack_bits_np(codes: np.ndarray, bits: int) -> np.ndarray:
+    """Straddling pack in numpy: [..., L] codes -> [..., packed_words] uint32."""
+    codes = np.asarray(codes, np.uint32) & ((1 << bits) - 1)
+    *lead, L = codes.shape
+    W = packed_words(L, bits)
+    out = np.zeros((*lead, W), np.uint32)
+    flat_c = codes.reshape(-1, L)
+    flat_o = out.reshape(-1, W)
+    for j in range(L):
+        pos = j * bits
+        w, s = pos >> 5, pos & 31
+        flat_o[:, w] |= (flat_c[:, j] << s) & 0xFFFFFFFF
+        if s + bits > 32:
+            flat_o[:, w + 1] |= flat_c[:, j] >> (32 - s)
+    return out
+
+
+def unpack_bits_np(words: np.ndarray, bits: int, n_codes: int) -> np.ndarray:
+    """Inverse of ``pack_bits_np``: [..., W] words -> [..., n_codes] uint8."""
+    words = np.asarray(words, np.uint64)
+    *lead, W = words.shape
+    flat_w = words.reshape(-1, W)
+    out = np.zeros((flat_w.shape[0], n_codes), np.uint8)
+    mask = (1 << bits) - 1
+    for j in range(n_codes):
+        pos = j * bits
+        w, s = pos >> 5, pos & 31
+        v = flat_w[:, w] >> s
+        if s + bits > 32 and w + 1 < W:
+            v |= flat_w[:, w + 1] << (32 - s)
+        out[:, j] = (v & mask).astype(np.uint8)
+    return out.reshape(*lead, n_codes)

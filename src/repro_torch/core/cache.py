@@ -36,6 +36,12 @@ from repro_torch.core import bitpack, layouts, pool
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.obs.profiling import annotate
 
+NEG_INF = -1e9  # the masked logit of attend_materialized and reference_attend
+
+# Re-exported under the reference's name for it here.
+bits_for_rel_scale = layouts.bits_for_rel_scale
+
+
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
     """Static cache configuration (hashable).
@@ -161,6 +167,12 @@ class LayerKVCache:
     @property
     def batch(self) -> int:
         return self.k_buf.shape[0]
+
+    @property
+    def total_len(self) -> torch.Tensor:
+        """Per-row tokens visible to attention (window-capped): int ``[B]``."""
+        nb = torch.clamp(self.n_flushed, max=self.spec.n_blocks)
+        return nb * self.spec.block_size + self.buf_len
 
 
 def init_layer_cache(spec: CacheSpec, batch: int, n_kv_heads: int, head_dim: int,
@@ -432,3 +444,59 @@ def append_chunk(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor) 
     cache.v_buf[:, :, :C] = v_new.to(dt)
     cache.buf_len.fill_(C)
     return cache
+
+
+def attend_materialized(cache: LayerKVCache, q: torch.Tensor,
+                        scale: float | None = None) -> torch.Tensor:
+    """The decompress-then-attend baseline (the paper's multi-kernel path):
+    dequantize the whole store through ``fetch`` into bf16 ``[B, Hkv, NB,
+    T, D]`` and run one float32 joint softmax over (store ∥ buffer), masked
+    by ``min(n_flushed, NB)`` and ``buf_len``.
+
+    A paged cache is first gathered into a private ring (``pool.to_dense``;
+    an unassigned entry reads the clamped page, as in the reference).  On
+    the card the huffman store decodes through the slot LUT decode kernel
+    and the products run as cuBLAS matmuls.  An oracle and the baseline the
+    Fetch is measured against: no backend dispatches to it."""
+    cache = pool.to_dense(cache)
+    spec = cache.spec
+    B, Hq, D = q.shape
+    Hkv = cache.k_buf.shape[1]
+    G = Hq // Hkv
+    T, NB = spec.block_size, spec.n_blocks
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    f32, dev = torch.float32, q.device
+    qg = q.reshape(B, Hkv, G, D).to(f32)
+    k_deq, v_deq = spec.impl.fetch(spec, cache)  # bf16 [B, Hkv, NB, T, D]
+    k_deq, v_deq = k_deq.to(f32), v_deq.to(f32)
+    s_main = torch.einsum("bhgd,bhntd->bhgnt", qg, k_deq) * scale
+    block_ok = (torch.arange(NB, device=dev)[None, :]
+                < torch.clamp(cache.n_flushed, max=NB)[:, None])  # [B, NB]
+    s_main = torch.where(block_ok[:, None, None, :, None], s_main, NEG_INF)
+    s_buf = torch.einsum("bhgd,bhtd->bhgt", qg, cache.k_buf.to(f32)) * scale
+    buf_ok = torch.arange(T, device=dev)[None, :] < cache.buf_len[:, None]  # [B, T]
+    s_buf = torch.where(buf_ok[:, None, None, :], s_buf, NEG_INF)
+    w = torch.softmax(torch.cat([s_main.reshape(B, Hkv, G, NB * T), s_buf], dim=-1), dim=-1)
+    out = torch.einsum("bhgnt,bhntd->bhgd", w[..., :NB * T].reshape(B, Hkv, G, NB, T), v_deq)
+    out = out + torch.einsum("bhgt,bhtd->bhgd", w[..., NB * T:], cache.v_buf.to(f32))
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def reference_attend(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
+                     scale: float | None = None, window: int | None = None) -> torch.Tensor:
+    """Exact attention over raw ``[B, Hkv, S, D]`` K and V (the oracle);
+    ``window`` keeps the last ``window`` positions."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    qg = q.reshape(B, Hkv, G, D).to(f32)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.to(f32)) * scale
+    if window is not None and S > window:
+        keep = torch.arange(S, device=q.device) >= (S - window)
+        s = torch.where(keep[None, None, None, :], s, NEG_INF)
+    out = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(s, dim=-1), v.to(f32))
+    return out.reshape(B, Hq, D).to(q.dtype)

@@ -32,6 +32,8 @@ from repro_torch.core.bitpack import to_int32_bits
 
 N_SYMBOLS = 256
 MAX_CODE_LEN = 16
+# Worst-case encoded bits per symbol given the length limit.
+WORST_BITS_PER_SYMBOL = MAX_CODE_LEN
 # Stream bits consumed per LUT probe of the chunked direct-lookup decoder.
 LUT_CHUNK_BITS = 8
 # Stream bits one probe of the slot decode kernel's multi-symbol table
@@ -122,6 +124,14 @@ class CodeBook:
         codes are rebuilt from the lengths alone, MAX_CODE_LEN = 16)."""
         return N_SYMBOLS * 4
 
+    def expected_bits_per_symbol(self, hist: np.ndarray) -> float:
+        """Mean code length over a symbol histogram (0 for an empty one)."""
+        h = np.asarray(hist, dtype=np.float64)
+        tot = h.sum()
+        if tot == 0:
+            return 0.0
+        return float((h * self.lengths).sum() / tot)
+
     @property
     def decode_probes(self) -> int:
         """LUT probes per symbol: one per started LUT_CHUNK_BITS of the
@@ -164,6 +174,10 @@ class CodeBook:
         per device."""
         return self._per_device("enc", device, lambda dev: tuple(
             torch.from_numpy(a.astype(np.int64)).to(dev) for a in (self.codes_lsb, self.lengths)))
+
+    def as_encode_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``encode_tables`` on the CPU: (codes_lsb, lengths), int64 [256]."""
+        return self.encode_tables("cpu")
 
     def as_device_tables(self, device="cpu"):
         """Decode tables as int32 tensors padded to MAX_NODES nodes:

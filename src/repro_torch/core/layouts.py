@@ -14,7 +14,8 @@ registry.  A layout owns:
 * ``tile_decode``  — the ``FusedTileSpec`` the Fetch kernel
                      (``kernels.fused_kv_attn``) and its plain version use.
 * ``fetch``        — bulk dequantized K/V of a whole dense ring, built on
-                     ``decode_span`` (reconstruction and tests only).
+                     ``decode_span`` (reconstruction, tests and the
+                     ``cache.attend_materialized`` baseline only).
 * ``size_report``  — exact size accounting of an offline-quantized tensor
                      (``core.quant``), metadata included.
 
@@ -270,6 +271,14 @@ class CacheLayout:
         ``None`` units when the codes already are the values."""
         raise NotImplementedError
 
+    def decode_block(self, spec, cache, n: int):
+        """Decode ONE store block: ``decode_span(spec, cache, n, 1)`` with the
+        block axis dropped, codes (or values) f32 ``[B, H, T, D]``."""
+        kc, k_mn, k_st, vc, v_mn, v_st = self.decode_span(spec, cache, n, 1)
+        one = lambda a: None if a is None else a[:, :, 0]  # noqa: E731
+        return (one(kc).to(torch.float32), one(k_mn), one(k_st),
+                one(vc).to(torch.float32), one(v_mn), one(v_st))
+
     def fetch(self, spec, cache):
         """Bulk Fetch of a dense cache: dequantized K and V bf16
         ``[B, H, NB, T, D]`` of every ring slot, through ``decode_span`` over
@@ -301,7 +310,7 @@ class CacheLayout:
         raise NotImplementedError
 
     def tile_decode(self, spec, head_dim: int) -> FusedTileSpec | None:
-        return _tile_spec(self.name, spec, head_dim) if self.supports_fused else None
+        return fused_tile_spec(self.name, spec, head_dim)
 
     def _tile_decode(self, spec, head_dim: int) -> FusedTileSpec:
         raise NotImplementedError
@@ -315,8 +324,11 @@ class CacheLayout:
 
 
 @functools.lru_cache(maxsize=256)
-def _tile_spec(layout_name: str, spec, head_dim: int) -> FusedTileSpec:
-    return get_layout(layout_name)._tile_decode(spec, head_dim)
+def fused_tile_spec(layout_name: str, spec, head_dim: int) -> FusedTileSpec | None:
+    """The layout's (memoized) tile spec, or None when the Fetch kernel
+    cannot decode its tiles (``supports_fused`` is authoritative)."""
+    lay = get_layout(layout_name)
+    return lay._tile_decode(spec, head_dim) if lay.supports_fused else None
 
 
 _REGISTRY: dict[str, CacheLayout] = {}
@@ -398,6 +410,28 @@ class PackedLayout(CacheLayout):
         z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
         return (z(B, H, NB, spec.words_k(D), dt=torch.int32), z(B, H, NB, D), z(B, H, NB, D),
                 z(B, H, NB, spec.words_v(D), dt=torch.int32), z(B, H, NB, T), z(B, H, NB, T))
+
+    def quantize_blocks(self, spec, k: torch.Tensor, v: torch.Tensor):
+        """The lossy stage of every quantizing layout, plain: raw blocks
+        ``[B, H, NB, T, D]`` -> (codes u8, min, step) of K (BlockQuant: over
+        the block's tokens, per channel) and of V (TokenQuant: over D, per
+        token), in float32."""
+        k_codes, k_mn, k_st = quant_block_minmax(k.to(torch.float32), spec.rel_scale_k,
+                                                 spec.bits_k, (-2,), self.kivi_step)
+        v_codes, v_mn, v_st = quant_block_minmax(v.to(torch.float32), spec.rel_scale_v,
+                                                 spec.bits_v, (-1,), self.kivi_step)
+        return k_codes, k_mn, k_st, v_codes, v_mn, v_st
+
+    def compress_blocks(self, spec, k: torch.Tensor, v: torch.Tensor):
+        """Raw blocks ``[B, H, NB, T, D]`` -> the packed stores and bf16
+        scales, plain: what ``write_blocks``' Store kernel writes."""
+        k_codes, k_mn, k_st, v_codes, v_mn, v_st = self.quantize_blocks(spec, k, v)
+        B, H, NB, T, D = k.shape
+        bf = torch.bfloat16
+        return (bitpack.pack_nostraddle(k_codes.reshape(B, H, NB, T * D), spec.bits_k),
+                k_mn.to(bf), k_st.to(bf),
+                bitpack.pack_nostraddle(v_codes.reshape(B, H, NB, T * D), spec.bits_v),
+                v_mn.to(bf), v_st.to(bf))
 
     def write_blocks(self, spec, cache, slots, kb, vb) -> None:
         from repro_torch.kernels import pack_encode  # late: kernels import core
@@ -556,10 +590,7 @@ class HuffmanLayout(PackedLayout):
         return codes.reshape(*store.shape[:3], spec.block_size, head_dim)
 
     def write_blocks(self, spec, cache, slots, kb, vb) -> None:
-        kc, kmn, kst = quant_block_minmax(kb.to(torch.float32), spec.rel_scale_k,
-                                          spec.bits_k, (-2,), False)
-        vc, vmn, vst = quant_block_minmax(vb.to(torch.float32), spec.rel_scale_v,
-                                          spec.bits_v, (-1,), False)
+        kc, kmn, kst, vc, vmn, vst = self.quantize_blocks(spec, kb, vb)
         bf = torch.bfloat16
         for store, val in ((cache.k_store, self._encode(spec, kc, self.book_k(spec))),
                            (cache.k_min, kmn.to(bf)), (cache.k_step, kst.to(bf)),

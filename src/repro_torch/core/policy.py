@@ -86,6 +86,11 @@ class CompressionPolicy:
                     "(one page id serves every layer's arena); drop the "
                     f"block_size override on layers {ov.layers}")
 
+    @property
+    def uniform(self) -> bool:
+        """True when every layer resolves to the same spec."""
+        return not self.overrides
+
     def resolve(self, layer: int) -> "CompressionPolicy":
         """Collapse overrides for one layer into an override-free policy."""
         layout, block, k, v = self.layout, self.block_size, self.k, self.v

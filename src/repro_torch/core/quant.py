@@ -26,11 +26,14 @@ kivi Store follows the reference's compiled step instead
 from __future__ import annotations
 
 import dataclasses
+from typing import Literal
 
 import torch
 
 # Codes are uint8: at most 256 levels for the error-bounded quantizer.
 N_LEVELS_U8 = 256
+
+GranularityK = Literal["block", "channel"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +45,7 @@ class QuantConfig:
     block_size: int = 64
     rel_scale_k: float = 0.05
     rel_scale_v: float = 0.15
-    k_granularity: str = "block"  # "block" | "channel"
+    k_granularity: GranularityK = "block"
     # KIVI baseline parameters.
     kivi_bits: int = 2
     kivi_group: int = 32

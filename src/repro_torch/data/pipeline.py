@@ -75,6 +75,12 @@ class TextCorpus:
         lab = np.stack([self._data[s + 1:s + 1 + self.seq_len] for s in starts]).astype(np.int32)
         return {"tokens": tok, "labels": lab}
 
+    def host_shard(self, batch: dict, host_id: int, n_hosts: int) -> dict:
+        """Host ``host_id``'s contiguous share of a global batch."""
+        per = self.global_batch // n_hosts
+        sl = slice(host_id * per, (host_id + 1) * per)
+        return {k: v[sl] for k, v in batch.items()}
+
 
 @dataclasses.dataclass
 class SyntheticCorpus:

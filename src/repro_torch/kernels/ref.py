@@ -15,6 +15,18 @@ from repro_torch.core.layouts import quant_block_minmax
 NEG_INIT = -1e30  # finite "-inf" so flash combines never produce NaN
 
 
+def dequant_k(codes, k_min, k_step) -> torch.Tensor:
+    """codes [..., T, D], k_min/k_step [..., D] (BlockQuant units) -> f32."""
+    f32 = torch.float32
+    return k_min[..., None, :].to(f32) + codes.to(f32) * k_step[..., None, :].to(f32)
+
+
+def dequant_v(codes, v_min, v_step) -> torch.Tensor:
+    """codes [..., T, D], v_min/v_step [..., T] (TokenQuant units) -> f32."""
+    f32 = torch.float32
+    return v_min[..., None].to(f32) + codes.to(f32) * v_step[..., None].to(f32)
+
+
 def _rows(x, B: int) -> torch.Tensor:
     """Per-row int vector [B] (a scalar broadcasts)."""
     x = torch.as_tensor(x, dtype=torch.int32)

@@ -102,6 +102,10 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def has_attention(self) -> bool:
         return self.family in ("dense", "moe", "hybrid")
 

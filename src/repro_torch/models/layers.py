@@ -7,6 +7,11 @@ import torch
 import torch.nn.functional as F
 
 
+def dtype_of(name: str) -> torch.dtype:
+    """A config's dtype name as a ``torch.dtype``."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
+
+
 def dense_init(gen: torch.Generator, shape, scale=None, *, device, dtype=torch.float32):
     """normal * fan_in**-0.5 (fan_in = shape[0]), the reference's init scale."""
     fan_in = shape[0] if len(shape) >= 2 else 1

@@ -27,9 +27,11 @@ import torch
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.serve.scheduler import Request, Result, Server, ServerConfig
+from repro_torch.serve.scheduler import (Request, Result, Server, ServerConfig,
+                                         cache_memory_report)
 
-__all__ = ["EngineConfig", "Engine", "LockstepEngine", "Request", "Result"]
+__all__ = ["EngineConfig", "Engine", "LockstepEngine", "Request", "Result", "Server",
+           "ServerConfig", "cache_memory_report"]
 
 
 @dataclasses.dataclass

@@ -1369,17 +1369,8 @@ class Server:
             pass
 
     def memory_report(self) -> dict:
-        """Measured bytes of the live decode state (all slots; in paged mode
-        the whole arena and the page tables; under a mesh, the same bytes
-        summed over the shards): ``kv_bytes`` the KV caches,
-        ``total_bytes`` those plus the SSM states."""
-        kv = sum(c.nbytes() if self.mesh is not None else
-                 sum(getattr(c, f).numel() * getattr(c, f).element_size() for f in c.FIELDS)
-                 for c in self.state.get("kv", ()))
-        other = sum(t.numel() * t.element_size()
-                    for key in ("ssm", "ssm_tail") for t in _leaves(self.state.get(key)))
-        return {"total_bytes": int(kv + other), "kv_bytes": int(kv),
-                "layout": self.cfg.cache_layout}
+        """``cache_memory_report`` of the live decode state (all slots)."""
+        return cache_memory_report(self.cfg, self.state)
 
     def stats(self) -> dict:
         """Serving stats: a view over ``self.metrics``, with the reference's
@@ -1457,3 +1448,23 @@ class Server:
         if trace_out and self.trace.enabled:
             self.trace.write_chrome(trace_out)
         return snap
+
+
+def cache_memory_report(cfg: ModelConfig, state) -> dict:
+    """Measured bytes of a decode state, the reference's report:
+    ``kv_bytes`` the KV caches (in paged mode the whole arena and the page
+    tables; under a mesh, the unsharded cache's bytes summed over the
+    shards), ``total_bytes`` those plus the SSM states, ``layout`` the
+    config's; under a per-layer policy also ``per_layer_layouts``, each
+    layer's resolved layout (the reference then holds its caches one a
+    layer, where a uniform policy stacks them)."""
+    caches = state.get("kv", ())
+    kv = sum(c.nbytes() if isinstance(c, serve_shard.ShardedLayerCache) else
+             sum(getattr(c, f).numel() * getattr(c, f).element_size() for f in c.FIELDS)
+             for c in caches)
+    other = sum(t.numel() * t.element_size()
+                for key, sub in state.items() if key != "kv" for t in _leaves(sub))
+    rep = {"total_bytes": int(kv + other), "kv_bytes": int(kv), "layout": cfg.cache_layout}
+    if caches and not cfg.compression_policy().uniform:
+        rep["per_layer_layouts"] = [c.spec.layout for c in caches]
+    return rep

@@ -56,13 +56,8 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
 from repro_torch.optim import adamw, grad_compress
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-
-
-def dtype_of(name: str) -> torch.dtype:
-    return DTYPES[name]
 
 
 @dataclasses.dataclass(frozen=True)

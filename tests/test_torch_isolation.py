@@ -127,3 +127,135 @@ def test_sharded_training_names_are_covered(module, names):
     mod = importlib.import_module(module)
     assert Path(mod.__file__).resolve() in {p.resolve() for p in SOURCES}
     assert all(callable(getattr(mod, n)) for n in names)
+
+
+# The reference's public surface, name for name.  Every public name of every
+# module of src/repro (top-level functions, classes and assigned names, and
+# the public methods and properties of its public classes) is in the port's
+# module of the same path, or mapped here to the port name that does its
+# work, or listed as JAX-only with the reason.  Both packages are read with
+# ``ast``: importing the reference's modules could change XLA's flags.
+REF = ROOT / "src" / "repro"
+
+SURFACE_MAP = {  # (reference module, name) -> (port module, name)
+    ("core/huffman.py", "decode_block_jax"): ("core/huffman.py", "decode_block_torch"),
+    ("core/huffman.py", "decode_block_lut_jax"): ("core/huffman.py", "decode_block_lut_torch"),
+    ("core/huffman.py", "encode_block_jax"): ("core/huffman.py", "encode_block_torch"),
+    ("core/huffman.py", "walk_decode_jax"): ("core/huffman.py", "walk_decode_torch"),
+    ("kernels/ops.py", "fused_cache_attention"): ("kernels/fused_kv_attn.py",
+                                                  "fused_cache_attention"),
+    ("kernels/ops.py", "quant_pack"): ("kernels/pack_encode.py", "quant_pack"),
+    # a Pallas kernel's entry point -> the wrapper of its CUDA kernel
+    ("kernels/fused_kv_attn.py", "fused_cache_attention_pallas"): ("kernels/fused_kv_attn.py",
+                                                                   "fused_cache_attention"),
+    ("kernels/pack_encode.py", "quant_pack_pallas"): ("kernels/pack_encode.py", "quant_pack"),
+    ("kernels/huffman_decode.py", "huffman_decode_pallas"): ("kernels/huffman_decode.py",
+                                                             "huffman_decode"),
+    ("kernels/huffman_decode.py", "huffman_attn_scores_pallas"): ("kernels/huffman_decode.py",
+                                                                  "huffman_attn_scores"),
+}
+
+_PYTREE = "a JAX pytree hook; the port's containers are plain dataclasses"
+_XLA = "an analysis of XLA's compiled HLO; the port's dry run counts on the meta device"
+JAX_ONLY = {  # (reference module or "*", name or "*.method") -> why the port has none
+    ("*", "Array"): "the jax.Array alias; the port annotates torch.Tensor",
+    ("*", "*.tree_flatten"): _PYTREE,
+    ("*", "*.tree_flatten_with_keys"): _PYTREE,
+    ("*", "*.tree_unflatten"): _PYTREE,
+    ("core/cache.py", "LayerKVCache.with_spec"): "rewrites the static spec of a pytree's views "
+                                                 "for GSPMD shards; the port's serve_shard "
+                                                 "builds each shard's cache itself",
+    ("kernels/runtime.py", "on_tpu"): "asks JAX for its backend; the port goes by the "
+                                      "tensor's device",
+    ("kernels/runtime.py", "resolve_impl"): "picks Pallas or XLA for impl=; the port's "
+                                            "wrappers pick by device and take no impl",
+    ("kernels/runtime.py", "resolve_interpret"): "Pallas interpret mode; a CUDA kernel has "
+                                                 "none, the CPU runs its plain version",
+    ("launch/dryrun.py", "lower_compile"): _XLA,
+    ("launch/dryrun.py", "cost_numbers"): _XLA,
+    ("launch/dryrun.py", "memory_numbers"): _XLA,
+    ("launch/dryrun.py", "parse_collective_bytes"): _XLA,
+    ("launch/dryrun.py", "DTYPE_BYTES"): _XLA,
+    ("distributed/sharding.py", "HAS_AXIS_TYPES"): "probes jax.sharding for AxisType",
+    ("distributed/sharding.py", "constrain"): "a GSPMD sharding constraint; the port places "
+                                              "its Sharded pieces itself",
+    ("distributed/sharding.py", "make_mesh"): "jax.make_mesh; the port's meshes come from "
+                                              "launch/mesh.py",
+    ("distributed/sharding.py", "set_ambient_mesh"): "the ambient mesh that constrain reads",
+    ("distributed/serve_shard.py", "constrain_state"): "GSPMD constraints on a state tree "
+                                                       "inside jit",
+    ("distributed/serve_shard.py", "decode_state_shardings"): "NamedShardings to device_put a "
+                                                              "state; the port's "
+                                                              "ShardedLayerCache holds the "
+                                                              "shards",
+    ("distributed/serve_shard.py", "override_backend"): "rewrites the static spec of a jitted "
+                                                        "state; a ShardedLayerCache keeps its "
+                                                        "inner backend",
+    ("train/step.py", "shape_of"): "jax.ShapeDtypeStruct trees; the port's shapes are meta "
+                                   "tensors",
+    ("models/attention.py", "init_attn_block"): "splits JAX PRNG keys; the port draws every "
+                                                "weight from one torch.Generator, whose order "
+                                                "fixes the seeded weights",
+}
+
+
+def _public_names(path: Path) -> set:
+    """Public top-level names of a module, and ``Class.member`` for the
+    public methods and properties of its public classes, members inherited
+    from a class of the same module included."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names, classes = set(), {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            found = [node.name]
+        elif isinstance(node, ast.Assign):
+            found = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            found = [node.target.id]
+        else:
+            found = []
+        names.update(n for n in found if not n.startswith("_"))
+        if isinstance(node, ast.ClassDef):
+            classes[node.name] = node
+
+    def members(cls) -> set:
+        own = {m.name for m in cls.body if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+               and not m.name.startswith("_")}
+        for base in cls.bases:
+            if isinstance(base, ast.Name) and base.id in classes:
+                own |= members(classes[base.id])
+        return own
+
+    for name, cls in classes.items():
+        if not name.startswith("_"):
+            names |= {f"{name}.{m}" for m in members(cls)}
+    return names
+
+
+def _jax_only(module: str, name: str) -> bool:
+    method = "*." + name.split(".")[-1] if "." in name else None
+    return any(key in JAX_ONLY for key in ((module, name), ("*", name), ("*", method)))
+
+
+def test_reference_public_surface_is_covered():
+    missing, stale = [], []
+    for path in sorted(REF.rglob("*.py")):
+        module = path.relative_to(REF).as_posix()
+        port = PORT / module
+        have = _public_names(port) if port.exists() else set()
+        for name in sorted(_public_names(path)):
+            if name in have or _jax_only(module, name):
+                continue
+            target = SURFACE_MAP.get((module, name))
+            if target is None:
+                missing.append(f"{module}:{name}")
+            elif target[1] not in _public_names(PORT / target[0]):
+                stale.append(f"{module}:{name} -> {target} (not in the port)")
+    # every specific entry still names a reference name the port lacks
+    for module, name in [*SURFACE_MAP, *(k for k in JAX_ONLY if k[0] != "*")]:
+        if name not in _public_names(REF / module):
+            stale.append(f"{module}:{name} (not in the reference)")
+        elif name in _public_names(PORT / module):
+            stale.append(f"{module}:{name} (the port has it under its own name)")
+    assert not missing, f"reference names the port lacks: {missing}"
+    assert not stale, stale

@@ -167,3 +167,7 @@ def test_quickstart_example_runs_on_the_cpu(capsys):
     assert out.rstrip().endswith("done.")
     for layout in ("raw", "packed", "kivi", "huffman"):
         assert f"[{layout:8s}] total_len=203" in out
+    # section 3: the Fetch's plain version against the decompress-then-attend
+    # baseline, within the bound the reference holds between its backends
+    line = next(s for s in out.splitlines() if "fetch plain-vs-materialized max diff:" in s)
+    assert float(line.rsplit(":", 1)[1]) <= 5e-3
